@@ -1,0 +1,77 @@
+"""torchdraco — the batched Draco position encoder on PyTorch and CUDA.
+
+A port of tpudraco's device plane to one NVIDIA Hopper card. The host codec
+(connectivity, quantization, table serialization, ``.drc`` assembly) is
+tpudraco's own, reached through ``torchdraco._host``; the device work is
+three hand-written CUDA kernels, each beside a plain PyTorch twin:
+
+  ops/device.py       K1 predict_residual, K2 histogram (the fused step)
+  ops/rans_lanes.py   K3 rans_words_scan (the multi-lane rANS coder)
+  parallel/batch.py   BatchEncoder.encode_meshes_device (the main path)
+
+No module here imports JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def make_mesh_batch(batch: int, n: int, seed: int = 0):
+    """A batch of n x n grid meshes with shared topology: (positions
+    (batch, n*n, 3) float32, faces (F, 3) int64)."""
+    rng = np.random.RandomState(seed)
+    xs, ys = np.meshgrid(np.arange(n, dtype=np.float32),
+                         np.arange(n, dtype=np.float32))
+    base = np.stack([xs.ravel(), ys.ravel(), np.zeros(n * n, np.float32)],
+                    axis=1)
+    positions = base[None] + rng.rand(batch, n * n, 3).astype(np.float32)
+    faces = []
+    for i in range(n - 1):
+        for j in range(n - 1):
+            a = i * n + j
+            faces.append([a, a + 1, a + n])
+            faces.append([a + 1, a + n + 1, a + n])
+    return positions, np.asarray(faces, dtype=np.int64)
+
+
+def build_meshes(positions: np.ndarray, faces: np.ndarray) -> list:
+    """One position-only Mesh per row of ``positions``."""
+    from . import _host
+
+    meshes = []
+    for p in positions:
+        mb = _host.MeshBuilder()
+        mb.set_connectivity_attribute(faces)
+        mb.add_attribute(p, _host.AttributeType.POSITION,
+                         _host.AttributeDomain.POSITION)
+        meshes.append(mb.build())
+    return meshes
+
+
+def entry(device=None):
+    """Returns (fn, args): the fused encode step (K1 + K2) on a batch of 8
+    grid meshes, 16 x 16 each, quantized at 11 bits on the host.
+    ``fn(q)`` returns (symbols (8, 256, 3) int32, counts (8, 4096) int32)."""
+    import torch
+
+    from .device import resolve
+    from .ops import encode_step_from_q_cuda
+    from .parallel.batch import (PreparedTopology, gathers_to_torch,
+                                 quantize_positions_host,
+                                 topology_gathers_np)
+
+    dev = resolve(device)
+    positions, faces = make_mesh_batch(batch=8, n=16)
+    mesh0 = build_meshes(positions[:1], faces)[0]
+    topo = PreparedTopology(mesh0)
+    gathers = gathers_to_torch(
+        topology_gathers_np(topo, mesh0.position_attribute()), dev)
+    q, _, _ = quantize_positions_host(positions, 11)
+    vmin = torch.from_numpy(q.min(axis=(1, 2))).to(dev)
+    vmax = torch.from_numpy(q.max(axis=(1, 2))).to(dev)
+
+    def fn(q_dev):
+        return encode_step_from_q_cuda(q_dev, gathers, vmin, vmax, bits=11)
+
+    return fn, (torch.from_numpy(q).to(dev),)

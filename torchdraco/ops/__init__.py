@@ -1,0 +1,32 @@
+"""Tensor ops of the port: the fused encode step (K1, K2) and the
+multi-lane rANS coder (K3), each a CUDA kernel beside its plain PyTorch
+twin."""
+
+from .device import (
+    bincount_kernel, default_hist_bins, encode_step_from_q,
+    encode_step_from_q_cuda, histogram, parallelogram_predict_kernel,
+    predict_residual, predict_residual_ref, wrapped_difference_kernel,
+    zigzag_kernel,
+)
+from .rans_lanes import (
+    encode_group_entropy_device, normalize_tables, rans_words_scan,
+    rans_words_scan_ref,
+)
+
+KERNEL_WRAPPERS = (predict_residual, histogram, rans_words_scan)
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for fn in KERNEL_WRAPPERS:
+        fn.n_launches = 0
+
+
+__all__ = [
+    "KERNEL_WRAPPERS", "bincount_kernel", "default_hist_bins",
+    "encode_group_entropy_device", "encode_step_from_q",
+    "encode_step_from_q_cuda", "histogram", "normalize_tables",
+    "parallelogram_predict_kernel", "predict_residual",
+    "predict_residual_ref", "rans_words_scan", "rans_words_scan_ref",
+    "reset_launch_counts", "wrapped_difference_kernel", "zigzag_kernel",
+]
