@@ -3,6 +3,9 @@
 this checkout, holds each against its plain PyTorch twin, drives the main
 path (BatchEncoder.encode_meshes_device) over 512 grid meshes of 64 x 64
 vertices, checks every .drc against the host encoder, and times the stages.
+Then the stream-lane plane at the same width: the lane coder through both
+engines (K3 words, K4 dense) and the lane decoder (D1) over the fused
+step's symbols, and BatchDecoder(entropy="device") over the 512 blobs.
 
     python3 chip_smoke.py
 
@@ -23,6 +26,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH, GRID, SEED, BITS = 512, 64, 1, 11
 K3_LANES, K3_T = 512, 2048
+LANE_P = 12  # bench.py bench_decode: per-lane tables at precision 12
 
 
 def _fail(msg: str) -> None:
@@ -50,6 +54,7 @@ def main() -> int:
     from torchdraco.ops import device as tdev
     from torchdraco.ops import rans_lanes as trl
     from torchdraco.parallel import batch as tbatch
+    from torchdraco.parallel import decode_batch as tdb
 
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
@@ -278,18 +283,272 @@ def main() -> int:
           f"share {idle}; top device ms "
           f"{[(n[:40], round(v, 3)) for n, v in top[:5]]}")
 
+    # ---- phase 6: the lane coder (K3, K4) and decoder (D1), full width --
+    # bench_decode's recipe: the fused step's symbols, one table per lane
+    # at precision 12, lanes fed reversed, every lane at full length
+    flat_np = syms_dev.view(BATCH, -1).cpu().numpy()
+    n_sym = flat_np.shape[1]
+    cnt_np = counts_dev.cpu().numpy()
+    dists = [_host.normalize_freq_counts(c[:np.flatnonzero(c)[-1] + 1],
+                                         LANE_P) for c in cnt_np]
+    s6 = 16
+    while s6 < max(len(d) for d in dists):
+        s6 *= 2
+    freqs6 = np.zeros((BATCH, s6), np.int32)
+    cums6 = np.zeros((BATCH, s6), np.int32)
+    slots6 = np.zeros((BATCH, 1 << LANE_P), np.int32)
+    for i, d in enumerate(dists):
+        freqs6[i, :len(d)] = d
+        cums6[i, 1:len(d)] = np.cumsum(d)[:-1]
+        slots6[i] = np.repeat(np.arange(len(d)), d)
+    lanes_np = np.ascontiguousarray(flat_np[:, ::-1]).astype(np.int32)
+    lanes_dev = torch.from_numpy(lanes_np).to(dev)
+    f6, c6, sl6 = (torch.from_numpy(a).to(dev)
+                   for a in (freqs6, cums6, slots6))
+    len6 = torch.full((BATCH,), n_sym, dtype=torch.int32, device=dev)
+    cnt6 = torch.full((BATCH,), n_sym, dtype=torch.int32, device=dev)
+    reset_launch_counts()
+    (bufs_d, nb_d), dense_s = wall_s(lambda: trl.rans_encode_lanes(
+        lanes_dev, f6, c6, len6, precision=LANE_P, dense=True))
+    (bufs_w, nb_w), words_s = wall_s(lambda: trl.rans_encode_lanes(
+        lanes_dev, f6, c6, len6, precision=LANE_P))
+    bufs6 = torch.from_numpy(bufs_d).to(dev)
+    nb6 = torch.from_numpy(nb_d).to(dev)
+    out6, d1_s = wall_s(lambda: trl.rans_decode_lanes(
+        bufs6, nb6, f6, c6, sl6, cnt6, precision=LANE_P))
+    launches6 = {fn.__name__: fn.n_launches for fn in
+                 (trl.rans_words_scan, trl.rans_scan_dense,
+                  trl.rans_decode_lanes)}
+    report["launches_phase6"] = launches6
+    _check(all(n > 0 for n in launches6.values()),
+           f"a kernel of the lane path never launched: {launches6}")
+    _check(np.array_equal(bufs_d, bufs_w) and np.array_equal(nb_d, nb_w),
+           "the dense (K4) and words (K3) engines differ")
+    host_blobs6, host_enc_s = wall_s(lambda: [
+        _host_rans_encode(_host, d, lane) for d, lane in zip(dists,
+                                                           lanes_np)])
+    bad = [i for i in range(BATCH)
+           if bufs_d[i, :nb_d[i]].tobytes() != host_blobs6[i]]
+    _check(not bad, f"{len(bad)} lanes differ from the host RansEncoder "
+           f"(first {bad[:5]})")
+    _check(np.array_equal(out6.cpu().numpy().astype(np.int64), flat_np),
+           "D1 did not give every lane back")
+
+    def host_decode_lanes():
+        for i in range(BATCH):
+            blob = host_blobs6[i]
+            _host.RansDecoder(_host.ByteReader(blob), len(blob), dists[i],
+                              precision=LANE_P).read_all(n_sym)
+    host_decode_lanes()  # warm: loads the native library
+    host_dec_s = min(wall_s(host_decode_lanes)[1] for _ in range(2))
+    # K4 and D1 against their twins on the inputs of the runs above
+    fs_full = f6.to(torch.int64).gather(1, lanes_dev.to(torch.int64))
+    cs_full = c6.to(torch.int64).gather(1, lanes_dev.to(torch.int64))
+    k4 = trl.rans_scan_dense(fs_full, cs_full, len6, LANE_P)
+    sync()
+    k4_ref, k4_full_ref_s = wall_s(lambda: trl.rans_scan_dense_ref(
+        fs_full, cs_full, len6, LANE_P))
+    k4_full_err = max(max_abs_err(a, b) for a, b in zip(k4, k4_ref))
+    del k4, k4_ref
+    d1_ref, d1_full_ref_s = wall_s(lambda: trl.rans_decode_lanes_ref(
+        bufs6, nb6, f6, c6, sl6, cnt6, precision=LANE_P))
+    _check(out6.dtype == d1_ref.dtype, f"D1 dtype {out6.dtype} vs twin "
+           f"{d1_ref.dtype} (full shape)")
+    d1_full_err = max_abs_err(out6, d1_ref)
+    del d1_ref
+    _check(k4_full_err == 0 and d1_full_err == 0, f"kernel != twin at the "
+           f"lane shape: K4 {k4_full_err}, D1 {d1_full_err}")
+    # edge cases at T = K3_T: ragged and zero lengths, D1 through the
+    # packed dtypes (P = 12) and the generic ones (P = 20, one shared table)
+    rng6 = np.random.default_rng(SEED + 6)
+    short = lanes_dev[:, :K3_T].contiguous()
+    ln_s = rng6.integers(0, K3_T + 1, size=BATCH).astype(np.int32)
+    ln_s[::5], ln_s[1::5] = K3_T, 0
+    ln_dev = torch.from_numpy(ln_s).to(dev)
+    idx = short.to(torch.int64)
+    fs_s, cs_s = f6.to(torch.int64).gather(1, idx), c6.to(torch.int64) \
+        .gather(1, idx)
+    k4 = trl.rans_scan_dense(fs_s, cs_s, ln_dev, LANE_P)
+    sync()
+    k4_ref, k4_ref_s = wall_s(lambda: trl.rans_scan_dense_ref(
+        fs_s, cs_s, ln_dev, LANE_P))
+    errs["rans_scan_dense"] = max([k4_full_err] + [
+        max_abs_err(a, b) for a, b in zip(k4, k4_ref)])
+    d1_cases = {}
+    b12, n12 = trl.rans_encode_lanes(short, f6, c6, ln_dev, precision=LANE_P)
+    d1_cases["p12"] = ((torch.from_numpy(b12).to(dev), n12, f6, c6, sl6,
+                        ln_s), LANE_P)
+    wide = rng6.integers(0, 3000, size=(BATCH, K3_T)) ** 2 % 3000
+    d20 = _host.normalize_freq_counts(np.bincount(wide.ravel(),
+                                                  minlength=3000), 20)
+    c20 = np.concatenate([[0], np.cumsum(d20)[:-1]])
+    s20 = np.repeat(np.arange(len(d20)), d20).astype(np.int32)
+    b20, n20 = trl.rans_encode_lanes(
+        torch.from_numpy(wide.astype(np.int32)).to(dev), d20, c20, ln_s,
+        precision=20)
+    d1_cases["p20"] = ((torch.from_numpy(b20).to(dev), n20, d20, c20,
+                        torch.from_numpy(s20).to(dev), ln_s), 20)
+    d1_err, d1_ref_s, d1_dtypes = d1_full_err, {}, {}
+    for name, (args, prec) in d1_cases.items():
+        got = trl.rans_decode_lanes(*args, precision=prec)
+        sync()
+        want, d1_ref_s[name] = wall_s(lambda: trl.rans_decode_lanes_ref(
+            *args, precision=prec))
+        _check(got.dtype == want.dtype, f"D1 dtype {got.dtype} vs twin "
+               f"{want.dtype} ({name})")
+        d1_dtypes[name] = str(got.dtype)
+        d1_err = max(d1_err, max_abs_err(got, want))
+    errs["rans_decode_lanes"] = d1_err
+    _check(errs["rans_scan_dense"] == 0 and d1_err == 0,
+           f"kernel != twin: {errs}")
+    # card times: the two engines end to end, in turns; full shape
+    # (kernels) and the twins' shape
+    engine_s: dict = {"dense": [], "words": []}
+    for order in (("dense", "words"), ("words", "dense")):
+        for eng in order:
+            engine_s[eng].append(wall_s(lambda: trl.rans_encode_lanes(
+                lanes_dev, f6, c6, len6, precision=LANE_P,
+                dense=eng == "dense"))[1])
+    prec_full = torch.full((BATCH,), LANE_P, dtype=torch.int32, device=dev)
+    flipped = lanes_dev.flip(1)
+    t6 = {
+        "k4_full_ms": cuda_ms(lambda: trl.rans_scan_dense(
+            fs_full, cs_full, len6, LANE_P), 5),
+        "k3_full_ms": cuda_ms(lambda: trl.rans_words_scan(
+            flipped, f6, c6, prec_full, len6), 5),
+        "d1_full_ms": cuda_ms(lambda: trl.rans_decode_lanes(
+            bufs6, nb6, f6, c6, sl6, cnt6, precision=LANE_P), 5),
+        "k4_short_ms": cuda_ms(lambda: trl.rans_scan_dense(
+            fs_s, cs_s, ln_dev, LANE_P), 10),
+        "d1_short_ms": cuda_ms(lambda: trl.rans_decode_lanes(
+            *d1_cases["p12"][0], precision=LANE_P), 10),
+        "zero_freq_check_ms": cuda_ms(lambda: trl.zero_frequency_hit(
+            lanes_dev, f6, len6), 20),
+        "zero_freq_check_wall_ms": 1e3 * min(wall_s(lambda: bool(
+            trl.zero_frequency_hit(lanes_dev, f6, len6)))[1]
+            for _ in range(20)),
+        "k4_twin_full_ms": k4_full_ref_s * 1e3,
+        "d1_twin_full_ms": d1_full_ref_s * 1e3,
+        "k4_twin_short_ms": k4_ref_s * 1e3,
+        "d1_twin_short_ms": {a: b * 1e3 for a, b in d1_ref_s.items()},
+        "encode_lanes_dense_s": [dense_s] + engine_s["dense"],
+        "encode_lanes_words_s": [words_s] + engine_s["words"],
+        "decode_lanes_s": d1_s, "host_rans_encode_s": host_enc_s,
+        "host_rans_decode_s": host_dec_s}
+    report["phase6"] = {**t6, "d1_dtypes": d1_dtypes, "lane_alphabet": s6}
+    k["rans_scan_dense"] = (t6["k4_full_ms"], t6["k4_twin_full_ms"])
+    k["rans_decode_lanes"] = (t6["d1_full_ms"], t6["d1_twin_full_ms"])
+    print(f"phase 6: {BATCH} lanes x {n_sym} symbols at P={LANE_P} "
+          f"(alphabet {s6}): K4 and K3 engines give identical buffers, "
+          f"all equal the host RansEncoder, D1 gives every lane back, K4 "
+          f"and D1 equal their twins there and at T={K3_T} (ragged, zero, "
+          f"P=20 shared); launches {launches6}; K4/K3/D1 at full shape "
+          f"{t6['k4_full_ms']:.3f} / {t6['k3_full_ms']:.3f} / "
+          f"{t6['d1_full_ms']:.3f} ms, twins K4 "
+          f"{t6['k4_twin_full_ms']:.1f} / D1 {t6['d1_twin_full_ms']:.1f} "
+          f"ms; zero-frequency check {t6['zero_freq_check_ms']:.4f} ms "
+          f"(with its readback {t6['zero_freq_check_wall_ms']:.4f} ms); "
+          f"at L={BATCH}, T={K3_T} K4 "
+          f"{t6['k4_short_ms']:.3f} ms vs twin {k4_ref_s * 1e3:.1f} ms, D1 "
+          f"{t6['d1_short_ms']:.3f} ms vs twin "
+          f"{ {a: round(b * 1e3, 1) for a, b in d1_ref_s.items()} } ms "
+          f"(dtypes {d1_dtypes}); rans_encode_lanes dense "
+          f"{[round(x * 1e3, 1) for x in t6['encode_lanes_dense_s']]} ms, "
+          f"words {[round(x * 1e3, 1) for x in t6['encode_lanes_words_s']]}"
+          f" ms; D1 with its copies {d1_s * 1e3:.1f} ms; host RansEncoder "
+          f"{host_enc_s:.3f} s, RansDecoder {host_dec_s:.3f} s over the "
+          f"same lanes")
+
+    # ---- phase 7: BatchDecoder(entropy="device") over phase 3's blobs ---
+    bd = tdb.BatchDecoder()
+    d1_calls = []  # (args, kwargs, output) of every D1 call of the run
+    real_d1 = tdb.rans_decode_lanes
+
+    def recorded_d1(*a, **kw):
+        out = real_d1(*a, **kw)
+        d1_calls.append((a, kw, out))
+        return out
+    tdb.rans_decode_lanes = recorded_d1
+    reset_launch_counts()
+    try:
+        decoded, dev_dec_s = wall_s(lambda: bd.decode_blobs_shared_topology(
+            blobs, entropy="device", device=dev))
+    finally:
+        tdb.rans_decode_lanes = real_d1
+    launches7 = {fn.__name__: fn.n_launches for fn in
+                 (trl.rans_decode_lanes,)}
+    report["launches_phase7"] = launches7
+    _check(launches7["rans_decode_lanes"] > 0,
+           "BatchDecoder(entropy='device') never launched D1")
+    _check(bd.n_host_blobs == 0, f"{bd.n_host_blobs} blobs went to the host")
+    stages7 = dict(bd.timings)
+    # D1 against its twin on each call's own per-lane P = 19-20 tables
+    chunks7 = []
+    for a, kw, got in d1_calls:
+        prec = kw["precision"]
+        d1_ms = cuda_ms(lambda: real_d1(*a, **kw), 3)
+        want, twin_s = wall_s(lambda: trl.rans_decode_lanes_ref(*a, **kw))
+        _check(got.dtype == want.dtype, f"D1 dtype {got.dtype} vs twin "
+               f"{want.dtype} (P={prec}, phase 7)")
+        err = max_abs_err(got, want)
+        chunks7.append({"precision": prec, "lanes": int(a[0].shape[0]),
+                        "T": int(got.shape[1]), "per_lane": a[2].dim() == 2,
+                        "max_abs_err": err, "ms": d1_ms,
+                        "twin_ms": twin_s * 1e3})
+        errs["rans_decode_lanes"] = max(errs["rans_decode_lanes"], err)
+        del want
+    del d1_calls
+    _check(errs["rans_decode_lanes"] == 0,
+           f"D1 != twin on phase 7's streams: {chunks7}")
+    refs, host_ref_s = wall_s(lambda: [_host.decode(b) for b in blobs])
+    bad = [i for i, (g, r) in enumerate(zip(decoded, refs))
+           if g is None or not np.array_equal(g.faces, r.faces)
+           or len(g.attributes) != len(r.attributes)
+           or not all(np.array_equal(np.asarray(a.values),
+                                     np.asarray(b.values))
+                      for a, b in zip(g.attributes, r.attributes))]
+    _check(not bad, f"{len(bad)} decoded meshes differ from "
+           f"tpudraco.decode.decode (first {bad[:5]})")
+    dev_runs7, host_runs7 = [dev_dec_s], []
+    for _ in range(2):  # interleaved: host, device, host
+        host_runs7.append(wall_s(lambda: tdb.BatchDecoder()
+                                 .decode_blobs_shared_topology(blobs))[1])
+        if len(dev_runs7) < 2:
+            dev_runs7.append(wall_s(lambda: bd.decode_blobs_shared_topology(
+                blobs, entropy="device", device=dev))[1])
+    report["phase7"] = {"device_s": dev_runs7, "host_s": host_runs7,
+                        "per_blob_decode_s": host_ref_s,
+                        "stages_first_run_s": stages7,
+                        "stages_last_run_s": dict(bd.timings),
+                        "d1_calls": chunks7}
+    print(f"phase 7: BatchDecoder(entropy='device') decoded {BATCH} blobs, "
+          f"all equal tpudraco.decode.decode, 0 host blobs, launches "
+          f"{launches7}; D1 equals its twin on every call's per-lane tables "
+          f"{[(c['precision'], c['lanes'], round(c['ms'], 3), round(c['twin_ms'], 1)) for c in chunks7]}"
+          f" (P, lanes, ms, twin ms); device entropy "
+          f"{[round(x, 3) for x in dev_runs7]} "
+          f"s vs host entropy {[round(x, 3) for x in host_runs7]} s "
+          f"(per-blob decode() {host_ref_s:.3f} s); stages "
+          f"{ {a: round(b, 4) for a, b in bd.timings.items()} }")
+
     src = "torchdraco/ops/csrc/"
     table = [
         ("predict_residual", "predict_residual.cu",
-         "tpudraco/ops/pallas_kernels.py:174"),
-        ("histogram", "histogram.cu", "tpudraco/ops/pallas_kernels.py:71"),
+         "tpudraco/ops/pallas_kernels.py:174", launches),
+        ("histogram", "histogram.cu", "tpudraco/ops/pallas_kernels.py:71",
+         launches),
         ("rans_words_scan", "rans_words.cu",
-         "tpudraco/ops/pallas_kernels.py:399"),
+         "tpudraco/ops/pallas_kernels.py:399", launches),
+        ("rans_scan_dense", "rans_dense.cu",
+         "tpudraco/ops/pallas_kernels.py:274", launches6),
+        ("rans_decode_lanes", "rans_decode.cu",
+         "tpudraco/ops/rans_lanes.py:813,:889 (XLA lax.scan in the "
+         "reference, not Pallas)", launches7),
     ]
     kernels = [{"name": name, "route": "cuda", "source": src + f,
-                "replaces": rep, "launches": launches[name],
+                "replaces": rep, "launches": counts[name],
                 "max_abs_err": errs[name], "ms": k[name][0],
-                "plain_ms": k[name][1]} for name, f, rep in table]
+                "plain_ms": k[name][1]} for name, f, rep, counts in table]
     print("chip_smoke details: " + json.dumps({**report, "kernels": kernels}),
           file=sys.stderr)
     print(json.dumps({"kernels": kernels}))
@@ -297,6 +556,12 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _host_rans_encode(host, dist, lane) -> bytes:
+    enc = host.RansEncoder(dist, precision=LANE_P)
+    enc.write_all(lane)
+    return enc.flush()
 
 
 if __name__ == "__main__":

@@ -12,6 +12,7 @@ import torchdraco
 from torchdraco import _host
 from torchdraco.ops import device as tdev
 from torchdraco.ops import rans_lanes as trl
+from torchdraco.parallel import BatchDecoder
 from torchdraco.parallel import batch as tbatch
 
 pytestmark = pytest.mark.cuda
@@ -88,3 +89,80 @@ def test_slice_on_cuda_matches_host(cuda):
     meshes = torchdraco.build_meshes(pos, faces)
     blobs = tbatch.BatchEncoder().encode_meshes_device(meshes, device=cuda)
     assert blobs == [_host.encode(m) for m in meshes]
+
+
+@pytest.mark.parametrize("prec", (12, 20))
+def test_rans_dense_kernel_matches_twin(cuda, prec):
+    """Random (freq, cum) pairs, frequency 0 on some active steps, ragged
+    and out-of-range lengths."""
+    rng = np.random.default_rng(prec)
+    L, T = 96, 700
+    fs = rng.integers(0, 1 << prec, size=(L, T)) // rng.integers(
+        1, 300, size=(L, T))
+    fs[:, ::17] = 0
+    cs = rng.integers(0, 1 << prec, size=(L, T))
+    ln = rng.integers(-3, T + 5, size=L)
+    args = [torch.from_numpy(a).to(cuda) for a in (fs, cs, ln)]
+    n0 = trl.rans_scan_dense.n_launches
+    got = trl.rans_scan_dense(*args, prec)
+    torch.cuda.synchronize()
+    assert trl.rans_scan_dense.n_launches == n0 + 1
+    for g, w in zip(got, trl.rans_scan_dense_ref(*args, prec)):
+        assert torch.equal(g, w)
+
+
+def _lanes(rng, L, T, prec, alphabet, per_lane):
+    counts = rng.integers(0, T + 1, size=L)
+    counts[0], counts[1] = T, 0
+    syms = rng.integers(0, alphabet, size=(L, T)) ** 2 % alphabet
+    tables = np.stack([np.bincount(r, minlength=alphabet) + (not per_lane)
+                       for r in (syms if per_lane else syms[:1])])
+    dist, _ = _host.normalize_freq_counts_batch(
+        tables, np.full(len(tables), prec))
+    cums = np.zeros_like(dist)
+    cums[:, 1:] = np.cumsum(dist[:, :-1], axis=1)
+    slots = np.stack([np.repeat(np.arange(dist.shape[1]), d) for d in dist])
+    if not per_lane:
+        dist, cums, slots = dist[0], cums[0], slots[0]
+    return syms.astype(np.int32), dist, cums, slots.astype(np.int32), counts
+
+
+@pytest.mark.parametrize("prec,alphabet,per_lane", [
+    (12, 200, True), (12, 3000, True), (20, 3000, True), (20, 50000, False)])
+def test_rans_decode_kernel_matches_twin(cuda, prec, alphabet, per_lane):
+    """Both engines encode on the card; D1 equals its twin and gives the
+    lanes back, through the packed dtypes (P=12) and the generic ones."""
+    rng = np.random.default_rng(prec + alphabet)
+    syms, dist, cums, slots, counts = _lanes(rng, 64, 600, prec, alphabet,
+                                             per_lane)
+    args = (torch.from_numpy(syms).to(cuda), dist, cums, counts)
+    bufs, nbytes = trl.rans_encode_lanes(*args, precision=prec, dense=True)
+    bufs_w, nbytes_w = trl.rans_encode_lanes(*args, precision=prec)
+    assert np.array_equal(bufs, bufs_w) and np.array_equal(nbytes, nbytes_w)
+    dev_args = (torch.from_numpy(bufs).to(cuda), nbytes, dist, cums,
+                torch.from_numpy(slots).to(cuda), counts)
+    n0 = trl.rans_decode_lanes.n_launches
+    got = trl.rans_decode_lanes(*dev_args, precision=prec)
+    torch.cuda.synchronize()
+    assert trl.rans_decode_lanes.n_launches == n0 + 1
+    want = trl.rans_decode_lanes_ref(*dev_args, precision=prec)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    got = got.cpu().numpy()
+    for i, n in enumerate(counts):
+        assert np.array_equal(got[i, :n].astype(np.int64), syms[i, :n][::-1])
+
+
+def test_shared_topology_decode_on_cuda(cuda):
+    pos, faces = torchdraco.make_mesh_batch(20, 12, seed=6)
+    meshes = torchdraco.build_meshes(pos, faces)
+    blobs = tbatch.BatchEncoder().encode_meshes_device(meshes, device=cuda)
+    bd = BatchDecoder()
+    n0 = trl.rans_decode_lanes.n_launches
+    out = bd.decode_blobs_shared_topology(blobs, entropy="device",
+                                          device=cuda)
+    assert bd.n_host_blobs == 0 and trl.rans_decode_lanes.n_launches > n0
+    for blob, got in zip(blobs, out):
+        ref = _host.decode(blob)
+        assert np.array_equal(got.faces, ref.faces)
+        assert np.array_equal(got.attributes[0].values,
+                              ref.attributes[0].values)

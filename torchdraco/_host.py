@@ -47,16 +47,21 @@ def _bridge() -> None:
 _bridge()
 
 from tpudraco import native  # noqa: E402
+from tpudraco.decode import _assemble_mesh, decode, decode_header  # noqa: E402
+from tpudraco.decode.attribute import decode_attributes  # noqa: E402
+from tpudraco.decode.connectivity import decode_connectivity  # noqa: E402
 from tpudraco.encode import (  # noqa: E402
     Config, _traversal_wire_id, encode, encode_header, encode_metadata,
 )
 from tpudraco.encode.attribute import encode_attributes  # noqa: E402
 from tpudraco.encode.connectivity import EdgebreakerEncoder  # noqa: E402
 from tpudraco.entropy.rans import (  # noqa: E402
-    normalize_freq_counts_batch, serialize_rans_tables_batch,
+    RansDecoder, RansEncoder, normalize_freq_counts,
+    normalize_freq_counts_batch, rans_precision_for_bit_length,
+    serialize_rans_table, serialize_rans_tables_batch,
 )
 from tpudraco.entropy.symbol_coding import (  # noqa: E402
-    DIRECT_CODED, bit_length_u64,
+    DIRECT_CODED, bit_length_u64, encode_symbols, parse_direct_coded_stream,
 )
 from tpudraco.models import (  # noqa: E402
     AttributeDomain, AttributeType, MeshBuilder, TableView,
@@ -64,14 +69,18 @@ from tpudraco.models import (  # noqa: E402
 from tpudraco.native import topo as native_topo  # noqa: E402
 from tpudraco.ops.gathers import build_parallelogram_gathers  # noqa: E402
 from tpudraco.shared.sequencer import compute_sequence  # noqa: E402
-from tpudraco.wire.byte_io import ByteWriter  # noqa: E402
-from tpudraco.wire.varint import leb128_bytes  # noqa: E402
+from tpudraco.wire.byte_io import ByteReader, ByteWriter  # noqa: E402
+from tpudraco.wire.varint import leb128_bytes, leb128_write  # noqa: E402
 
 __all__ = [
-    "AttributeDomain", "AttributeType", "ByteWriter", "Config",
-    "DIRECT_CODED", "EdgebreakerEncoder", "MeshBuilder", "TableView",
-    "_traversal_wire_id", "bit_length_u64", "build_parallelogram_gathers",
-    "compute_sequence", "encode", "encode_attributes", "encode_header",
-    "encode_metadata", "leb128_bytes", "native", "native_topo",
-    "normalize_freq_counts_batch", "serialize_rans_tables_batch",
+    "AttributeDomain", "AttributeType", "ByteReader", "ByteWriter", "Config",
+    "DIRECT_CODED", "EdgebreakerEncoder", "MeshBuilder", "RansDecoder",
+    "RansEncoder", "TableView", "_assemble_mesh", "_traversal_wire_id",
+    "bit_length_u64", "build_parallelogram_gathers", "compute_sequence",
+    "decode", "decode_attributes", "decode_connectivity", "decode_header",
+    "encode", "encode_attributes", "encode_header", "encode_metadata",
+    "encode_symbols", "leb128_bytes", "leb128_write", "native",
+    "native_topo", "normalize_freq_counts", "normalize_freq_counts_batch",
+    "parse_direct_coded_stream", "rans_precision_for_bit_length",
+    "serialize_rans_table", "serialize_rans_tables_batch",
 ]

@@ -1,6 +1,6 @@
-"""Tensor ops of the port: the fused encode step (K1, K2) and the
-multi-lane rANS coder (K3), each a CUDA kernel beside its plain PyTorch
-twin."""
+"""Tensor ops of the port: the fused encode step (K1, K2), the multi-lane
+rANS coder in its words (K3) and dense (K4) forms, and the lane decoder
+(D1), each a CUDA kernel beside its plain PyTorch twin."""
 
 from .device import (
     bincount_kernel, default_hist_bins, encode_step_from_q,
@@ -9,11 +9,14 @@ from .device import (
     zigzag_kernel,
 )
 from .rans_lanes import (
-    encode_group_entropy_device, normalize_tables, rans_words_scan,
-    rans_words_scan_ref,
+    encode_direct_coded_streams_device, encode_group_entropy_device,
+    encode_streams_device, normalize_tables, rans_decode_lanes,
+    rans_decode_lanes_ref, rans_encode_lanes, rans_scan_dense,
+    rans_scan_dense_ref, rans_words_scan, rans_words_scan_ref,
 )
 
-KERNEL_WRAPPERS = (predict_residual, histogram, rans_words_scan)
+KERNEL_WRAPPERS = (predict_residual, histogram, rans_words_scan,
+                   rans_scan_dense, rans_decode_lanes)
 
 
 def reset_launch_counts() -> None:
@@ -24,9 +27,12 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "KERNEL_WRAPPERS", "bincount_kernel", "default_hist_bins",
-    "encode_group_entropy_device", "encode_step_from_q",
-    "encode_step_from_q_cuda", "histogram", "normalize_tables",
+    "encode_direct_coded_streams_device", "encode_group_entropy_device",
+    "encode_step_from_q", "encode_step_from_q_cuda",
+    "encode_streams_device", "histogram", "normalize_tables",
     "parallelogram_predict_kernel", "predict_residual",
-    "predict_residual_ref", "rans_words_scan", "rans_words_scan_ref",
-    "reset_launch_counts", "wrapped_difference_kernel", "zigzag_kernel",
+    "predict_residual_ref", "rans_decode_lanes", "rans_decode_lanes_ref",
+    "rans_encode_lanes", "rans_scan_dense", "rans_scan_dense_ref",
+    "rans_words_scan", "rans_words_scan_ref", "reset_launch_counts",
+    "wrapped_difference_kernel", "zigzag_kernel",
 ]

@@ -1,6 +1,7 @@
 """Builds and loads the port's CUDA kernels.
 
-Every ``torchdraco/ops/csrc/*.cu`` file is compiled by ``nvcc`` into ONE
+Every ``torchdraco/ops/csrc/*.cu`` file is compiled by its own ``nvcc``
+process, all started together, and the objects are linked into ONE
 shared library with a plain C interface, loaded with ``ctypes``. The
 library is built at first use into ``torchdraco/_build/<hash>/``, keyed by
 a hash of the sources and the flags, so an edit rebuilds and an unchanged
@@ -26,9 +27,9 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "csrc")
 _BUILD_ROOT = os.path.join(os.path.dirname(_HERE), "_build")
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 build_info: dict = {}  # seconds, path, ptxas report of the loaded library
@@ -44,6 +45,9 @@ _SIGNATURES = {
     "tdr_histogram": [_P, _I64, _I64, _I32, _P, _I32, _P],
     "tdr_rans_words": [_P, _P, _P, _I64, _P, _P, _I64, _I64, _I64, _P, _P,
                        _P],
+    "tdr_rans_dense": [_P, _P, _P, _I64, _I64, _I32, _P, _P, _P, _P],
+    "tdr_rans_decode": [_P, _I64, _P, _P, _P, _I64, _I64, _P, _I64, _P,
+                        _I64, _I64, _I32, _I32, _P, _P],
 }
 
 
@@ -87,13 +91,26 @@ def load():
         os.makedirs(build_dir, exist_ok=True)
         tmp = f"{so_path}.tmp{os.getpid()}"
         cu = [p for p in _sources() if p.endswith(".cu")]
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+        objs = [os.path.join(build_dir, os.path.basename(p)
+                             + f".{os.getpid()}.o") for p in cu]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, p],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for p, o in zip(cu, objs)]
+        logs = [proc.communicate()[1] for proc in procs]  # wait for all
+        for p, proc, err in zip(cu, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {os.path.basename(p)} "
+                                   f"({proc.returncode}):\n{err[-4000:]}")
+        link = subprocess.run([_nvcc(), *_ARCH, "-shared", "-o", tmp, *objs],
                               capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stderr[-4000:]}")
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stderr[-4000:]}")
+        for o in objs:
+            os.remove(o)
         with open(log_path, "w") as f:
-            f.write(proc.stderr)
+            f.write("".join(logs))
         os.replace(tmp, so_path)
     lib = ctypes.CDLL(so_path)
     for name, argtypes in _SIGNATURES.items():

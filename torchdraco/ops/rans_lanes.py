@@ -1,8 +1,9 @@
-"""Multi-lane rANS encode of a topology group's symbol streams.
+"""Multi-lane rANS: the encode side of a topology group's symbol streams,
+the generic lane coder and its inverse.
 
-Counterpart of the encode side of ``tpudraco/ops/rans_lanes.py``: one lane
-is one mesh's DirectCoded stream, coded on its own normalized table at its
-own precision. The flow is that of ``_group_entropy_device_tables``:
+Counterpart of ``tpudraco/ops/rans_lanes.py``. One lane is one Draco
+DirectCoded stream, coded on its own normalized table at its own precision.
+The group encoder follows ``_group_entropy_device_tables``:
 
 1. ``normalize_tables`` builds every lane's table and precision on the
    device (int64, bit-identical to the host's f64 normalization);
@@ -14,12 +15,24 @@ own precision. The flow is that of ``_group_entropy_device_tables``:
 4. the host unpacks the words into byte streams (``collect_words``,
    ``append_flush``) and frames the payloads (``assemble_payloads``).
 
+The stream-lane plane beside it:
+
+- ``rans_encode_lanes`` codes (L, T) lanes on a shared or per-lane table at
+  one precision through either engine: the words scan (K3) or the dense
+  scan (K4, ``rans_scan_dense``, ``csrc/rans_dense.cu``) with its
+  compaction (``rans_scan_lanes_dense``). Both give the same bytes.
+  ``encode_streams_device`` and ``encode_direct_coded_streams_device``
+  are its host-facing callers.
+- ``rans_decode_lanes`` (D1, ``csrc/rans_decode.cu``) decodes lanes back.
+
 The plain twins (``flip_lanes``, ``lane_tables_gather``,
-``rans_words_scan_ref``) are the spec for K3 and the path of CPU tensors.
-They carry rANS states in int64 masked with 0xFFFFFFFF, since torch has no
-division, remainder, shift or compare on uint32. The JAX package's
-readback buckets, lane chunking and compaction modes existed for a
-high-latency link and are not ported.
+``rans_words_scan_ref``, ``rans_scan_dense_ref``,
+``rans_decode_lanes_ref``) are the spec for the kernels and the path of CPU
+tensors. They carry rANS states in int64 masked with 0xFFFFFFFF, since
+torch has no division, remainder, shift or compare on uint32. The JAX
+package's readback buckets, lane chunking, compaction modes and
+compile-cache padding existed for a high-latency link and for XLA, and are
+not ported.
 """
 
 from __future__ import annotations
@@ -28,11 +41,15 @@ import numpy as np
 import torch
 
 from .. import _host
+from ..device import resolve
 from . import _build
 from .device import _cuda_stream, _require
 
 MAX_RENORM_PER_SYMBOL = 3
 _U32 = 0xFFFFFFFF
+# the precisions a lane may take: Draco's DirectCoded schedule gives 12-20
+# (``rans_precision_for_bit_length``), and a decode slot table has 2^P rows
+MAX_PRECISION = 20
 
 
 def normalize_tables(counts: torch.Tensor, n_sym: int):
@@ -327,3 +344,420 @@ def encode_group_entropy_device(symbols: torch.Tensor,
 
 
 encode_group_entropy_device.n_patho_lanes = 0
+
+
+# ---------------------------------------------------------------------------
+# The stream-lane coder: shared or per-lane tables at one precision
+# ---------------------------------------------------------------------------
+
+
+def _as_tensor(a, dev: torch.device) -> torch.Tensor:
+    """A tensor on ``dev``; numpy input (uint32 tables included) becomes
+    int64, which holds every value a lane table or count can take."""
+    if isinstance(a, torch.Tensor):
+        return a.to(dev)
+    return torch.from_numpy(np.asarray(a).astype(np.int64)).to(dev)
+
+
+def _check_precision(precision: int) -> None:
+    _require(1 <= int(precision) <= MAX_PRECISION,
+             f"precision must be in 1..{MAX_PRECISION}, got {precision}")
+
+
+def rans_scan_dense_ref(fs, cs, lengths, precision: int):
+    """Plain version of K4 (``rans_scan_pallas``), the lax.scan branch of
+    ``_rans_scan_lanes``. fs/cs (L, T) integer tensors of uint32 values,
+    each lane's pre-gathered (freq, cum) per symbol; lengths (L,): lane l
+    codes its first ``lengths[l]`` symbols (clipped to [0, T]) front to
+    back. Returns (emitted (L, 3T) uint8, is_byte (L, 3T) bool, states (L,)
+    int32 holding uint32 bits): slot ``t * 3 + r`` is the r-th
+    renormalisation byte of step t, 0 and False where there is none. A
+    frequency of 0 divides as jnp does for uint32: quotient 0xFFFFFFFF,
+    remainder 0."""
+    _check_precision(precision)
+    L, T = fs.shape
+    dev = fs.device
+    p = int(precision)
+    f_all = fs.to(torch.int64) & _U32
+    c_all = cs.to(torch.int64) & _U32
+    ln = torch.clamp(lengths.to(device=dev, dtype=torch.int64), 0, T)
+    state = torch.full((L,), 4 << p, dtype=torch.int64, device=dev)
+    emitted = torch.zeros((L, T, MAX_RENORM_PER_SYMBOL), dtype=torch.uint8,
+                          device=dev)
+    is_byte = torch.zeros((L, T, MAX_RENORM_PER_SYMBOL), dtype=torch.bool,
+                          device=dev)
+    for t in range(T):
+        active = ln > t
+        f = f_all[:, t]
+        limit = ((4 * f) << 8) & _U32
+        for r in range(MAX_RENORM_PER_SYMBOL):
+            do = active & (state >= limit)
+            emitted[:, t, r] = torch.where(do, state & 0xFF, 0).to(
+                torch.uint8)
+            is_byte[:, t, r] = do
+            state = torch.where(do, state >> 8, state)
+        zero = f == 0
+        safe = torch.where(zero, 1, f)
+        q = torch.where(zero, _U32, state // safe)
+        m = torch.where(zero, 0, state % safe)
+        state = torch.where(active, ((q << p) + m + c_all[:, t]) & _U32,
+                            state)
+    return (emitted.reshape(L, -1), is_byte.reshape(L, -1),
+            _u32_bits(state))
+
+
+def rans_scan_dense(fs, cs, lengths, precision: int):
+    """K4: see ``rans_scan_dense_ref`` for the contract, which the kernel
+    meets bit for bit. On CUDA the kernel reads fs/cs as (T, L) and writes
+    (3T, L), transposed back here, so a warp's lanes touch neighbouring
+    addresses."""
+    if fs.device.type == "cpu":
+        return rans_scan_dense_ref(fs, cs, lengths, precision)
+    dev = fs.device
+    _require(dev.type == "cuda", f"unsupported device {dev}")
+    _check_precision(precision)
+    _require(fs.dim() == 2 and cs.shape == fs.shape and cs.device == dev,
+             "fs/cs must be (L, T) on one device")
+    L, T = fs.shape
+    _require(tuple(lengths.shape) == (L,) and lengths.device == dev,
+             f"lengths must be ({L},) on {dev}")
+    f_t = fs.to(torch.int32).t().contiguous()
+    c_t = cs.to(torch.int32).t().contiguous()
+    ln = lengths.to(torch.int32).contiguous()
+    bytes_t = torch.zeros((MAX_RENORM_PER_SYMBOL * T, L), dtype=torch.uint8,
+                          device=dev)
+    mask_t = torch.zeros_like(bytes_t)
+    states = torch.full((L,), 4 << int(precision), dtype=torch.int32,
+                        device=dev)
+    if L and T:
+        lib = _build.load()
+        rc = lib.tdr_rans_dense(f_t.data_ptr(), c_t.data_ptr(),
+                                ln.data_ptr(), L, T, int(precision),
+                                bytes_t.data_ptr(), mask_t.data_ptr(),
+                                states.data_ptr(), _cuda_stream(fs))
+        _build.check(rc, "rans_scan_dense")
+        rans_scan_dense.n_launches += 1
+    return (bytes_t.t().contiguous(), mask_t.t().contiguous().to(torch.bool),
+            states)
+
+
+rans_scan_dense.n_launches = 0
+
+
+def rans_scan_lanes_dense(symbols, freqs, cums, lengths, precision: int):
+    """Counterpart of ``_rans_scan_lanes``: the (freq, cum) pre-gather from
+    a shared (S,) or per-lane (L, S) table (symbols clipped to [0, S-1]),
+    K4, the flush framing (rans.rs:48-68) and the compaction of each lane's
+    real bytes to the row front. Returns (compacted (L, 3T) uint8 with a
+    zero tail, counts (L,) int32, packed flush states (L,) int64, flush
+    byte counts (L,) int32)."""
+    L, T = symbols.shape
+    dev = symbols.device
+    if freqs.dim() == 1:  # one table for every lane
+        freqs, cums = freqs.expand(L, -1), cums.expand(L, -1)
+    fs, cs = lane_tables_gather(symbols, freqs, cums)
+    emitted, is_byte, states = rans_scan_dense(fs, cs, lengths, precision)
+    st = ((states.to(torch.int64) & _U32) - (4 << int(precision))) & _U32
+    nflush = torch.where(st < (1 << 6), 1, torch.where(
+        st < (1 << 14), 2, torch.where(st < (1 << 22), 3, 4)))
+    packed = (st + ((nflush - 1) << (6 + 8 * (nflush - 1)))) & _U32
+    # stable partition: byte k of a lane goes to column k, idle slots
+    # (emitted as 0) to a spare column that is dropped
+    width = MAX_RENORM_PER_SYMBOL * T
+    pos = torch.cumsum(is_byte.to(torch.int64), dim=1) - 1
+    target = torch.where(is_byte, pos, width)
+    out = torch.zeros((L, width + 1), dtype=torch.uint8, device=dev)
+    out.scatter_(1, target, emitted)
+    counts = is_byte.sum(dim=1).to(torch.int32)
+    return out[:, :width], counts, packed, nflush.to(torch.int32)
+
+
+def zero_frequency_hit(symbols, freqs, lengths) -> torch.Tensor:
+    """Whether any lane codes a symbol of frequency 0, as a bool scalar on
+    the device of ``symbols``: one gather of a bool table, where the
+    pre-gather reads two int64 rows. symbols (L, T), clipped to [0, S-1]
+    as the pre-gather clips them; freqs (L, S); a lane codes its first
+    ``lengths[l]`` symbols."""
+    T = symbols.shape[1]
+    idx = torch.clamp(symbols.to(torch.int64), 0, freqs.shape[1] - 1)
+    coded = torch.arange(T, device=symbols.device) \
+        < lengths.to(torch.int64)[:, None]
+    return ((freqs == 0).gather(1, idx) & coded).any()
+
+
+def rans_encode_lanes(symbols, freqs, cums, lengths, precision: int = 12,
+                      dense: bool = False):
+    """Encode L lanes of up to T symbols each. symbols (L, T) int (a lane
+    codes ``symbols[l, :lengths[l]]`` front to back, i.e. a Draco stream
+    fed reversed); freqs/cums (S,) shared or (L, S) per-lane normalized
+    tables summing to 2^precision; lengths (L,). Tensors or numpy; the
+    work runs on the device of ``symbols``. ``dense`` picks the engine:
+    False the words scan (K3), True the dense scan (K4) and its
+    compaction, which was slower on an H100. Returns numpy (buffers
+    (L, 3T+8) uint8, nbytes (L,) int32), the same bytes either way.
+
+    A coded symbol of frequency 0 raises ValueError: the stream could not
+    be decoded, and the JAX package's two engines give different bytes
+    for it."""
+    _check_precision(precision)
+    if not isinstance(symbols, torch.Tensor):
+        symbols = torch.from_numpy(np.asarray(symbols).astype(np.int64))
+    dev = symbols.device
+    freqs, cums, lengths = (_as_tensor(a, dev) for a in (freqs, cums,
+                                                         lengths))
+    _require(symbols.dim() == 2, "symbols must be (L, T)")
+    L, T = symbols.shape
+    _require(freqs.shape == cums.shape and freqs.dim() in (1, 2)
+             and freqs.shape[-1] > 0
+             and (freqs.dim() == 1 or freqs.shape[0] == L),
+             f"freqs/cums must be (S,) or ({L}, S) with S > 0")
+    _require(tuple(lengths.shape) == (L,), f"lengths must be ({L},)")
+    if freqs.dim() == 1:  # one table for every lane
+        freqs, cums = freqs.expand(L, -1), cums.expand(L, -1)
+    # before either engine: the plain words scan would divide by zero
+    _require(not bool(zero_frequency_hit(symbols, freqs, lengths)),
+             "a lane codes a symbol of frequency 0")
+    if dense:
+        compacted, counts, packed, nflush = rans_scan_lanes_dense(
+            symbols, freqs, cums, lengths, precision)
+        buffers = np.zeros((L, 3 * T + 8), dtype=np.uint8)
+        buffers[:, :3 * T] = compacted.cpu().numpy()
+        counts = counts.cpu().numpy().astype(np.int64)
+        packed, nflush = packed.cpu().numpy(), nflush.cpu().numpy()
+    else:
+        # K3 codes the LAST length symbols of a row back to front
+        dist = freqs.to(torch.int32).contiguous()
+        cum2 = cums.to(torch.int32).contiguous()
+        prec = torch.full((L,), int(precision), dtype=torch.int32,
+                          device=dev)
+        words, meta = rans_words_scan(
+            symbols.to(torch.int32).flip(1), dist, cum2, prec,
+            lengths.to(torch.int32).contiguous())
+        meta_np = meta.cpu().numpy().view(np.uint32)
+        w = max(int(meta_np[:, 0].max()), 1) if L else 1
+        words_np = words[:, :w].cpu().numpy().view(np.uint32)
+        buffers, counts, packed, nflush = collect_words(words_np, meta_np, T)
+    nbytes = append_flush(buffers, counts, packed, nflush)
+    return buffers, nbytes
+
+
+def encode_streams_device(symbol_streams, freq_counts, precision: int = 12,
+                          device=None) -> list[bytes]:
+    """Pad streams into lanes on one shared table, run the lane coder on
+    ``device`` and slice each lane's bytes: bit-exact with the host
+    ``RansEncoder`` over ``normalize_freq_counts(freq_counts, precision)``."""
+    dist = _host.normalize_freq_counts(freq_counts, precision)
+    cums = np.concatenate(([0], np.cumsum(dist)[:-1]))
+    L = len(symbol_streams)
+    T = max(len(s) for s in symbol_streams)
+    symbols = np.zeros((L, T), dtype=np.int32)
+    lengths = np.zeros(L, dtype=np.int32)
+    for i, s in enumerate(symbol_streams):
+        symbols[i, :len(s)] = s
+        lengths[i] = len(s)
+    dev = resolve(device)
+    bufs, nbytes = rans_encode_lanes(torch.from_numpy(symbols).to(dev), dist,
+                                     cums, lengths, precision=precision)
+    return [bufs[i, :nbytes[i]].tobytes() for i in range(L)]
+
+
+def encode_direct_coded_streams_device(streams, device=None) -> list[bytes]:
+    """Full DirectCoded payloads for independent streams with the rANS
+    inner loop on ``device``, bit-exact with the host
+    ``encode_symbols(s, n, DIRECT_CODED, w)``. Each stream gets its own
+    table; lanes are bucketed by precision (a function of each stream's
+    nonzero count), each bucket is one lane-coder call with per-lane
+    tables, and the host writes each header (method, bit length, table,
+    leb128 blob length)."""
+    dev = resolve(device)
+    L = len(streams)
+    streams = [np.asarray(s, dtype=np.int64).ravel() for s in streams]
+    bls = np.empty(L, dtype=np.int64)
+    precisions = np.empty(L, dtype=np.int64)
+    dists: list[np.ndarray] = []
+    for i, s in enumerate(streams):
+        num_nonzero = int(np.count_nonzero(s))
+        bl = int(_host.bit_length_u64(np.asarray([num_nonzero]))[0]) + 1
+        bls[i] = max(1, min(18, bl))
+        precisions[i] = _host.rans_precision_for_bit_length(int(bls[i]))
+        counts = np.bincount(s, minlength=1)
+        dists.append(_host.normalize_freq_counts(counts, int(precisions[i])))
+
+    blobs: list[bytes] = [b""] * L
+    for prec in sorted(set(precisions.tolist())):
+        lanes = np.flatnonzero(precisions == prec)
+        T = max(1, max(len(streams[i]) for i in lanes))
+        S = max(len(dists[i]) for i in lanes)
+        sym = np.zeros((len(lanes), T), dtype=np.int32)
+        lengths = np.zeros(len(lanes), dtype=np.int32)
+        freqs = np.zeros((len(lanes), S), dtype=np.int64)
+        cums = np.zeros((len(lanes), S), dtype=np.int64)
+        for k, i in enumerate(lanes):
+            sym[k, :len(streams[i])] = streams[i][::-1]  # reversed feed
+            lengths[k] = len(streams[i])
+            d = dists[i]
+            freqs[k, :len(d)] = d
+            cums[k, 1:len(d)] = np.cumsum(d)[:-1]
+        bufs, nbytes = rans_encode_lanes(torch.from_numpy(sym).to(dev), freqs,
+                                         cums, lengths, precision=int(prec))
+        for k, i in enumerate(lanes):
+            blobs[i] = bufs[k, :nbytes[k]].tobytes()
+
+    out: list[bytes] = []
+    for i in range(L):
+        w = _host.ByteWriter()
+        w.write_u8(_host.DIRECT_CODED)
+        w.write_u8(int(bls[i]))
+        _host.serialize_rans_table(dists[i], w)
+        _host.leb128_write(len(blobs[i]), w)
+        w.write_bytes(blobs[i])
+        out.append(w.getvalue())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The lane decoder
+# ---------------------------------------------------------------------------
+
+
+def decode_dtype(precision: int, S: int):
+    """(dtype, sentinel) of ``rans_decode_lanes``' output, as the JAX
+    package picks them: its packed P <= 14 scan (alphabets up to 2^16)
+    returns uint8 at P == 12 with S <= 256, else uint16, with 0 past a
+    lane's count; its generic scan returns int16 where S fits, else int32,
+    with -1."""
+    if precision <= 14 and S <= (1 << 16):
+        return (torch.uint8 if precision == 12 and S <= 256
+                else torch.uint16), 0
+    return (torch.int16 if S <= (1 << 15) - 1 else torch.int32), -1
+
+
+def _decode_inputs(buffers, nbytes, freqs, cums, slots, counts,
+                   precision: int):
+    """Checked tensors of a lane decode on the buffers' device, and the
+    output length T: max(counts), or 2 * cap when no lane has a symbol."""
+    _check_precision(precision)
+    _require(isinstance(buffers, torch.Tensor) and buffers.dim() == 2
+             and buffers.dtype == torch.uint8,
+             "buffers must be an (L, cap) uint8 tensor")
+    dev = buffers.device
+    L, cap = buffers.shape
+    nbytes, freqs, cums, slots, counts = (
+        _as_tensor(a, dev) for a in (nbytes, freqs, cums, slots, counts))
+    _require(tuple(nbytes.shape) == (L,) and tuple(counts.shape) == (L,),
+             f"nbytes/counts must be ({L},)")
+    _require(freqs.shape == cums.shape and freqs.dim() in (1, 2)
+             and freqs.shape[-1] > 0
+             and (freqs.dim() == 1 or freqs.shape[0] == L),
+             f"freqs/cums must be (S,) or ({L}, S) with S > 0")
+    _require(slots.dim() == freqs.dim()
+             and slots.shape[-1] == 1 << int(precision)
+             and (slots.dim() == 1 or slots.shape[0] == L),
+             f"slots must be (2^{precision},) per table, shared or per lane "
+             "as freqs")
+    counts_h = counts.cpu().to(torch.int64)
+    nbytes_h = nbytes.cpu().to(torch.int64)
+    bad = (counts_h > 0) & ((nbytes_h < 1) | (nbytes_h > cap))
+    if bool(bad.any()):
+        k = int(torch.nonzero(bad)[0, 0])
+        raise ValueError(f"lane {k}: a stream of {int(counts_h[k])} symbols "
+                         f"needs 1..{cap} bytes, got {int(nbytes_h[k])}")
+    T = int(counts_h.max()) if L else 0
+    T = T if T > 0 else 2 * cap
+    return nbytes, freqs, cums, slots, counts, T
+
+
+def rans_decode_lanes_ref(buffers, nbytes, freqs, cums, slots, counts,
+                          precision: int = 12) -> torch.Tensor:
+    """Plain version of D1, with the output contract of the JAX
+    ``rans_decode_lanes``: buffers (L, cap) uint8 streams of nbytes (L,)
+    bytes; counts (L,) symbols per lane; freqs/cums (S,) with slots
+    (2^P,) shared, or (L, S) with (L, 2^P) per lane. Returns (L, T) symbols
+    in decode order (the reverse of the coded order), T = max(counts), in
+    ``decode_dtype(precision, S)`` with its sentinel past each count. A
+    lane with symbols needs 1..cap bytes (JAX would read a wrapped index
+    for nbytes == 0); ValueError otherwise."""
+    nbytes, freqs, cums, slots, counts, T = _decode_inputs(
+        buffers, nbytes, freqs, cums, slots, counts, precision)
+    dev = buffers.device
+    L, cap = buffers.shape
+    S = freqs.shape[-1]
+    dtype, sentinel = decode_dtype(precision, S)
+    n = torch.clamp(counts.to(torch.int64), 0, T)
+    out = torch.full((L, T), sentinel, dtype=torch.int64, device=dev)
+    if not L or not bool((n > 0).any()):
+        return out.to(dtype)
+    p = int(precision)
+    l_base, rmask = 4 << p, (1 << p) - 1
+    lane = torch.arange(L, device=dev)
+    bufs = buffers.to(torch.int64)
+    if freqs.dim() == 1:
+        freqs, cums, slots = (a[None].expand(L, -1)
+                              for a in (freqs, cums, slots))
+    freqs = freqs.to(torch.int64) & _U32
+    cums = cums.to(torch.int64) & _U32
+    slots = slots.to(torch.int64)
+    pos = torch.clamp(nbytes.to(torch.int64) - 1, 0, cap - 1)
+    meta = bufs[lane, pos]
+    flag = meta >> 6
+    x = torch.zeros(L, dtype=torch.int64, device=dev)
+    for k in range(3):
+        do = flag > k
+        pos = torch.where(do, pos - 1, pos)
+        byte = bufs[lane, torch.clamp(pos, min=0)]
+        x = torch.where(do, ((x << 8) | byte) & _U32, x)
+    x = ((x | ((meta & 0x3F) << (8 * flag))) + l_base) & _U32
+    for t in range(T):
+        active = n > t
+        for _ in range(MAX_RENORM_PER_SYMBOL):
+            need = active & (x < l_base) & (pos > 0)
+            pos = torch.where(need, pos - 1, pos)
+            byte = bufs[lane, torch.clamp(pos, min=0)]
+            x = torch.where(need, (x * 256 + byte) & _U32, x)
+        r = x & rmask
+        s = slots[lane, r]
+        sc = torch.clamp(s, 0, S - 1)
+        new = ((x >> p) * freqs[lane, sc] + r - cums[lane, sc]) & _U32
+        x = torch.where(active, new, x)
+        out[:, t] = torch.where(active, s, sentinel)
+    return out.to(dtype)
+
+
+def rans_decode_lanes(buffers, nbytes, freqs, cums, slots, counts,
+                      precision: int = 12) -> torch.Tensor:
+    """D1: see ``rans_decode_lanes_ref`` for the contract, which the kernel
+    meets bit for bit. Runs on the device of ``buffers``; the other inputs
+    may be tensors or numpy. On CUDA the kernel writes (T, L), transposed
+    back here."""
+    if not isinstance(buffers, torch.Tensor) or buffers.device.type == "cpu":
+        return rans_decode_lanes_ref(buffers, nbytes, freqs, cums, slots,
+                                     counts, precision)
+    dev = buffers.device
+    _require(dev.type == "cuda", f"unsupported device {dev}")
+    nbytes, freqs, cums, slots, counts, T = _decode_inputs(
+        buffers, nbytes, freqs, cums, slots, counts, precision)
+    L, cap = buffers.shape
+    S = freqs.shape[-1]
+    dtype, sentinel = decode_dtype(precision, S)
+    bufs = buffers.contiguous()
+    nb = nbytes.to(torch.int32).contiguous()
+    f32, c32, s32 = (a.to(torch.int32).contiguous()
+                     for a in (freqs, cums, slots))
+    cn = torch.clamp(counts.to(torch.int64), 0, T).to(torch.int32)
+    out = torch.empty((T, L), dtype=torch.int32, device=dev)
+    if L and T:
+        per_lane = freqs.dim() == 2
+        lib = _build.load()
+        rc = lib.tdr_rans_decode(bufs.data_ptr(), cap, nb.data_ptr(),
+                                 f32.data_ptr(), c32.data_ptr(), S,
+                                 S if per_lane else 0, s32.data_ptr(),
+                                 (1 << int(precision)) if per_lane else 0,
+                                 cn.data_ptr(), L, T, int(precision),
+                                 sentinel, out.data_ptr(),
+                                 _cuda_stream(buffers))
+        _build.check(rc, "rans_decode_lanes")
+        rans_decode_lanes.n_launches += 1
+    return out.to(dtype).t().contiguous()
+
+
+rans_decode_lanes.n_launches = 0
