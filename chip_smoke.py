@@ -2,17 +2,23 @@
 """Smoke run of torchdraco on one NVIDIA GPU: builds the CUDA kernels from
 this checkout, holds each against its plain PyTorch twin, drives the main
 path (BatchEncoder.encode_meshes_device) over 512 grid meshes of 64 x 64
-vertices, checks every .drc against the host encoder, and times the stages.
-Then the stream-lane plane at the same width: the lane coder through both
-engines (K3 words, K4 dense) and the lane decoder (D1) over the fused
-step's symbols, and BatchDecoder(entropy="device") over the 512 blobs.
+vertices, checks every .drc against the port's own host encoder, and times
+the stages. Then the stream-lane plane at the same width: the lane coder
+through both engines (K3 words, K4 dense) and the lane decoder (D1) over
+the fused step's symbols, and BatchDecoder(entropy="device") over the 512
+blobs, checked against the port's own host decoder. That the port's host
+codec equals tpudraco's is what the CPU tests show
+(tests/test_torch_host_codec.py); this script imports nothing of it.
 
     python3 chip_smoke.py
 
 Exits nonzero on any failure, and without a usable CUDA device. The last
 line of standard output is {"ok": true, "device": {...}}; the line before
-it lists every kernel with its launches on the main path, its error
-against its twin and both times. The full report (ptxas resources, every
+it lists every kernel with its launches on its path, its error against
+its twin, both times, its bound (bytes moved once over 3.35 TB/s, or
+integer operations over 67 Tops/s, whichever is larger) and, for the
+histogram, the time of the one PyTorch call that computes the same
+function. The full report (ptxas resources, every
 timing run, the device trace summary) goes to standard error as one
 JSON line.
 """
@@ -27,6 +33,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH, GRID, SEED, BITS = 512, 64, 1, 11
 K3_LANES, K3_T = 512, 2048
 LANE_P = 12  # bench.py bench_decode: per-lane tables at precision 12
+# published peaks of one H100 SXM: device memory, and float32 outside the
+# tensor cores, which stands in for the int32 rate of these integer kernels
+HBM_BYTES_S, ALU_OPS_S = 3.35e12, 67e12
+# integer operations a kernel does per element, counted from its source
+OPS = {"predict_residual": 12, "histogram": 2, "rans_words_scan": 30,
+       "rans_scan_dense": 30, "rans_decode_lanes": 30}
 
 
 def _fail(msg: str) -> None:
@@ -49,12 +61,20 @@ def main() -> int:
     import numpy as np
 
     import torchdraco
-    from torchdraco import _host
+    from torchdraco import native
+    from torchdraco.decode import decode
+    from torchdraco.encode import encode
+    from torchdraco.entropy.rans import (RansDecoder, RansEncoder,
+                                         normalize_freq_counts,
+                                         normalize_freq_counts_batch)
     from torchdraco.ops import _build, reset_launch_counts
     from torchdraco.ops import device as tdev
     from torchdraco.ops import rans_lanes as trl
     from torchdraco.parallel import batch as tbatch
     from torchdraco.parallel import decode_batch as tdb
+    from torchdraco.wire.byte_io import ByteReader
+
+    from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
@@ -85,6 +105,35 @@ def main() -> int:
         d = (a.to(torch.int64) - b.to(torch.int64)).abs()
         return int(d.max().item()) if d.numel() else 0
 
+    def kernel_only_ms(fn, name: str, reps: int = 3) -> float:
+        """Device time of the CUDA kernel whose name holds ``name``, per
+        call of ``fn``, from a profiler trace: the wrapper's tensor
+        operations and readbacks around the launch are left out."""
+        fn()
+        sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            sync()
+        us = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and name in e.name]
+        _check(len(us) > 0, f"the trace holds no kernel named *{name}*")
+        return sum(us) / 1e3 / len(us)  # the trace may miss launches
+
+    def nbytes(*tensors) -> int:
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    def bound(moved_bytes: int, operations: int) -> dict:
+        """The least time the card could take: each input byte read once
+        and each output byte written once at HBM_BYTES_S, or the integer
+        operations at ALU_OPS_S, whichever is larger."""
+        b_ms = moved_bytes / HBM_BYTES_S * 1e3
+        o_ms = operations / ALU_OPS_S * 1e3
+        return {"bound_ms": max(b_ms, o_ms),
+                "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                "bytes": int(moved_bytes), "operations": int(operations)}
+
     # ---- phase 1: the card, the stack, the kernel build -----------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -113,7 +162,7 @@ def main() -> int:
     pos_att = meshes[0].position_attribute()
     g_np = tbatch.topology_gathers_np(topo, pos_att)
     gathers = tbatch.gathers_to_torch(g_np, dev)
-    q_up, _, _, vmin, vmax = _host.native.quantize_batch(positions, BITS)
+    q_up, _, _, vmin, vmax = native.quantize_batch(positions, BITS)
     q_dev = torch.from_numpy(q_up).to(dev)
     vmin_dev = torch.from_numpy(vmin).to(dev)
     vmax_dev = torch.from_numpy(vmax).to(dev)
@@ -145,7 +194,7 @@ def main() -> int:
                % 3000).astype(np.int32)
     k3_prec = (12 + np.arange(K3_LANES) % 9).astype(np.int32)
     k3_counts = np.stack([np.bincount(r, minlength=3000) for r in k3_syms])
-    k3_dist, _ = _host.normalize_freq_counts_batch(k3_counts, k3_prec)
+    k3_dist, _ = normalize_freq_counts_batch(k3_counts, k3_prec)
     k3_cums = np.zeros_like(k3_dist)
     k3_cums[:, 1:] = np.cumsum(k3_dist[:, :-1], axis=1)
     k3_len = rng.integers(0, K3_T + 1, size=K3_LANES).astype(np.int32)
@@ -184,12 +233,12 @@ def main() -> int:
     _check(not bad, f"{len(bad)} blobs differ from the host plane "
            f"(first {bad[:5]})")
     sample = list(range(0, BATCH, BATCH // 32))
-    bad = [i for i in sample if blobs[i] != _host.encode(meshes[i])]
-    _check(not bad, f"blobs differ from tpudraco.encode.encode: {bad[:5]}")
+    bad = [i for i in sample if blobs[i] != encode(meshes[i])]
+    _check(not bad, f"blobs differ from the port's host encode(): {bad[:5]}")
     out_bytes = sum(len(b) for b in blobs)
     print(f"phase 3: {BATCH} meshes of {GRID}x{GRID} ({mb_in:.1f} MB f32 "
           f"positions) -> {out_bytes} B of .drc; all equal the host plane, "
-          f"{len(sample)} sampled equal tpudraco.encode.encode; launches "
+          f"{len(sample)} sampled equal the port's host encode(); launches "
           f"{launches}; pathological lanes {n_patho}")
 
     # ---- phase 4: times --------------------------------------------------
@@ -213,7 +262,7 @@ def main() -> int:
     # where the e2e time goes, one group through the public pieces
     sig_s = wall_s(lambda: [tbatch.topology_signature(m)
                             for m in meshes])[1]
-    quant_s = wall_s(lambda: _host.native.quantize_batch(positions,
+    quant_s = wall_s(lambda: native.quantize_batch(positions,
                                                          BITS))[1]
     dev_c, step_s = wall_s(lambda: tbatch.device_encode_group(
         positions, topo, pos_att, bits=BITS, device=dev))
@@ -233,6 +282,22 @@ def main() -> int:
     flat = syms_dev.view(BATCH, -1)
     k["histogram"] = (cuda_ms(lambda: tdev.histogram(flat, bins), 50),
                       cuda_ms(lambda: tdev.bincount_kernel(flat, bins), 10))
+    bounds = {"predict_residual": bound(
+        nbytes(q_dev, vmin_dev, vmax_dev, syms_dev, *gathers.values()),
+        OPS["predict_residual"] * syms_dev.numel())}
+    bounds["histogram"] = bound(nbytes(flat, counts_dev),
+                                OPS["histogram"] * flat.numel())
+    # the one PyTorch call that computes K2's function: a bincount of
+    # symbols offset by row * bins (timed here, used nowhere in the port)
+    row_off = (torch.arange(BATCH, device=dev) * bins)[:, None]
+
+    def library_histogram():
+        return torch.bincount((flat + row_off).view(-1),
+                              minlength=BATCH * bins).view(BATCH, bins)
+    _check(torch.equal(library_histogram(),
+                       tdev.histogram(flat, bins).to(torch.int64)),
+           "torch.bincount disagrees with K2 on the main path's symbols")
+    library_ms = {"histogram": cuda_ms(library_histogram, 20)}
     dist, cums, prec, _ = trl.normalize_tables(counts_dev, flat.shape[1])
     lengths = torch.full((BATCH,), flat.shape[1], dtype=torch.int32,
                          device=dev)
@@ -244,6 +309,11 @@ def main() -> int:
     _check(torch.equal(w3, ref_w) and torch.equal(m3, ref_m),
            "K3 != twin at the slice shape")
     k["rans_words_scan"] = (k3_ms, k3_ref_s * 1e3)
+    bounds["rans_words_scan"] = bound(
+        nbytes(flat, dist, cums, prec, lengths, m3)
+        + 4 * int(m3[:, 0].sum().item()),
+        OPS["rans_words_scan"] * int(lengths.sum().item()))
+    k3_prec_range = (int(prec.min().item()), int(prec.max().item()))
     t["kernel_ms"] = k
     report["times"] = t
     print(f"phase 4: fused step on resident data {t['step_ms']:.3f} ms; "
@@ -255,8 +325,6 @@ def main() -> int:
           f"kernel/twin ms { {a: (round(b, 4), round(c, 4)) for a, (b, c) in k.items()} }")
 
     # ---- phase 5: device trace of one warm e2e run ----------------------
-    from torch.profiler import ProfilerActivity, profile
-
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, prof_wall = wall_s(lambda: enc.encode_meshes_device(meshes,
@@ -289,22 +357,19 @@ def main() -> int:
     flat_np = syms_dev.view(BATCH, -1).cpu().numpy()
     n_sym = flat_np.shape[1]
     cnt_np = counts_dev.cpu().numpy()
-    dists = [_host.normalize_freq_counts(c[:np.flatnonzero(c)[-1] + 1],
+    dists = [normalize_freq_counts(c[:np.flatnonzero(c)[-1] + 1],
                                          LANE_P) for c in cnt_np]
     s6 = 16
     while s6 < max(len(d) for d in dists):
         s6 *= 2
     freqs6 = np.zeros((BATCH, s6), np.int32)
     cums6 = np.zeros((BATCH, s6), np.int32)
-    slots6 = np.zeros((BATCH, 1 << LANE_P), np.int32)
     for i, d in enumerate(dists):
         freqs6[i, :len(d)] = d
         cums6[i, 1:len(d)] = np.cumsum(d)[:-1]
-        slots6[i] = np.repeat(np.arange(len(d)), d)
     lanes_np = np.ascontiguousarray(flat_np[:, ::-1]).astype(np.int32)
     lanes_dev = torch.from_numpy(lanes_np).to(dev)
-    f6, c6, sl6 = (torch.from_numpy(a).to(dev)
-                   for a in (freqs6, cums6, slots6))
+    f6, c6 = (torch.from_numpy(a).to(dev) for a in (freqs6, cums6))
     len6 = torch.full((BATCH,), n_sym, dtype=torch.int32, device=dev)
     cnt6 = torch.full((BATCH,), n_sym, dtype=torch.int32, device=dev)
     reset_launch_counts()
@@ -314,8 +379,8 @@ def main() -> int:
         lanes_dev, f6, c6, len6, precision=LANE_P))
     bufs6 = torch.from_numpy(bufs_d).to(dev)
     nb6 = torch.from_numpy(nb_d).to(dev)
-    out6, d1_s = wall_s(lambda: trl.rans_decode_lanes(
-        bufs6, nb6, f6, c6, sl6, cnt6, precision=LANE_P))
+    out6, d1_first_s = wall_s(lambda: trl.rans_decode_lanes(
+        bufs6, nb6, f6, cnt6, precision=LANE_P))
     launches6 = {fn.__name__: fn.n_launches for fn in
                  (trl.rans_words_scan, trl.rans_scan_dense,
                   trl.rans_decode_lanes)}
@@ -325,8 +390,8 @@ def main() -> int:
     _check(np.array_equal(bufs_d, bufs_w) and np.array_equal(nb_d, nb_w),
            "the dense (K4) and words (K3) engines differ")
     host_blobs6, host_enc_s = wall_s(lambda: [
-        _host_rans_encode(_host, d, lane) for d, lane in zip(dists,
-                                                           lanes_np)])
+        _host_rans_encode(RansEncoder, d, lane)
+        for d, lane in zip(dists, lanes_np)])
     bad = [i for i in range(BATCH)
            if bufs_d[i, :nb_d[i]].tobytes() != host_blobs6[i]]
     _check(not bad, f"{len(bad)} lanes differ from the host RansEncoder "
@@ -337,8 +402,13 @@ def main() -> int:
     def host_decode_lanes():
         for i in range(BATCH):
             blob = host_blobs6[i]
-            _host.RansDecoder(_host.ByteReader(blob), len(blob), dists[i],
-                              precision=LANE_P).read_all(n_sym)
+            RansDecoder(ByteReader(blob), len(blob), dists[i],
+                        precision=LANE_P).read_all(n_sym)
+    # D1 with its copies: streams up as numpy, symbols back as numpy
+    d1_copies = [wall_s(lambda: trl.rans_decode_lanes(
+        torch.from_numpy(bufs_d).to(dev), nb_d, f6, cnt6,
+        precision=LANE_P).cpu().numpy())[1] for _ in range(3)]
+    d1_s = min(d1_copies)
     host_decode_lanes()  # warm: loads the native library
     host_dec_s = min(wall_s(host_decode_lanes)[1] for _ in range(2))
     # K4 and D1 against their twins on the inputs of the runs above
@@ -351,13 +421,25 @@ def main() -> int:
     k4_full_err = max(max_abs_err(a, b) for a, b in zip(k4, k4_ref))
     del k4, k4_ref
     d1_ref, d1_full_ref_s = wall_s(lambda: trl.rans_decode_lanes_ref(
-        bufs6, nb6, f6, c6, sl6, cnt6, precision=LANE_P))
+        bufs6, nb6, f6, cnt6, precision=LANE_P))
     _check(out6.dtype == d1_ref.dtype, f"D1 dtype {out6.dtype} vs twin "
            f"{d1_ref.dtype} (full shape)")
     d1_full_err = max_abs_err(out6, d1_ref)
     del d1_ref
-    _check(k4_full_err == 0 and d1_full_err == 0, f"kernel != twin at the "
-           f"lane shape: K4 {k4_full_err}, D1 {d1_full_err}")
+    # K3 at one precision for every lane (the lane coder's call)
+    prec_full = torch.full((BATCH,), LANE_P, dtype=torch.int32, device=dev)
+    flipped = lanes_dev.flip(1)
+    k3_full = trl.rans_words_scan(flipped, f6, c6, prec_full, len6)
+    sync()
+    k3_full_ref, k3_full_ref_s = wall_s(lambda: trl.rans_words_scan_ref(
+        flipped, f6, c6, prec_full, len6))
+    k3_full_err = max(max_abs_err(a, b)
+                      for a, b in zip(k3_full, k3_full_ref))
+    del k3_full, k3_full_ref
+    errs["rans_words_scan"] = max(errs["rans_words_scan"], k3_full_err)
+    _check(k4_full_err == 0 and d1_full_err == 0 and k3_full_err == 0,
+           f"kernel != twin at the lane shape: K4 {k4_full_err}, D1 "
+           f"{d1_full_err}, K3 {k3_full_err}")
     # edge cases at T = K3_T: ragged and zero lengths, D1 through the
     # packed dtypes (P = 12) and the generic ones (P = 20, one shared table)
     rng6 = np.random.default_rng(SEED + 6)
@@ -376,18 +458,16 @@ def main() -> int:
         max_abs_err(a, b) for a, b in zip(k4, k4_ref)])
     d1_cases = {}
     b12, n12 = trl.rans_encode_lanes(short, f6, c6, ln_dev, precision=LANE_P)
-    d1_cases["p12"] = ((torch.from_numpy(b12).to(dev), n12, f6, c6, sl6,
-                        ln_s), LANE_P)
+    d1_cases["p12"] = ((torch.from_numpy(b12).to(dev), n12, f6, ln_s),
+                       LANE_P)
     wide = rng6.integers(0, 3000, size=(BATCH, K3_T)) ** 2 % 3000
-    d20 = _host.normalize_freq_counts(np.bincount(wide.ravel(),
+    d20 = normalize_freq_counts(np.bincount(wide.ravel(),
                                                   minlength=3000), 20)
     c20 = np.concatenate([[0], np.cumsum(d20)[:-1]])
-    s20 = np.repeat(np.arange(len(d20)), d20).astype(np.int32)
     b20, n20 = trl.rans_encode_lanes(
         torch.from_numpy(wide.astype(np.int32)).to(dev), d20, c20, ln_s,
         precision=20)
-    d1_cases["p20"] = ((torch.from_numpy(b20).to(dev), n20, d20, c20,
-                        torch.from_numpy(s20).to(dev), ln_s), 20)
+    d1_cases["p20"] = ((torch.from_numpy(b20).to(dev), n20, d20, ln_s), 20)
     d1_err, d1_ref_s, d1_dtypes = d1_full_err, {}, {}
     for name, (args, prec) in d1_cases.items():
         got = trl.rans_decode_lanes(*args, precision=prec)
@@ -409,15 +489,23 @@ def main() -> int:
             engine_s[eng].append(wall_s(lambda: trl.rans_encode_lanes(
                 lanes_dev, f6, c6, len6, precision=LANE_P,
                 dense=eng == "dense"))[1])
-    prec_full = torch.full((BATCH,), LANE_P, dtype=torch.int32, device=dev)
-    flipped = lanes_dev.flip(1)
     t6 = {
         "k4_full_ms": cuda_ms(lambda: trl.rans_scan_dense(
             fs_full, cs_full, len6, LANE_P), 5),
         "k3_full_ms": cuda_ms(lambda: trl.rans_words_scan(
             flipped, f6, c6, prec_full, len6), 5),
         "d1_full_ms": cuda_ms(lambda: trl.rans_decode_lanes(
-            bufs6, nb6, f6, c6, sl6, cnt6, precision=LANE_P), 5),
+            bufs6, nb6, f6, cnt6, precision=LANE_P), 5),
+        "kernel_only_ms": {
+            "rans_words_kernel": kernel_only_ms(lambda: trl.rans_words_scan(
+                flipped, f6, c6, prec_full, len6), "rans_words_kernel"),
+            "rans_dense_kernel": kernel_only_ms(lambda: trl.rans_scan_dense(
+                fs_full, cs_full, len6, LANE_P), "rans_dense_kernel"),
+            "rans_decode_kernel": kernel_only_ms(
+                lambda: trl.rans_decode_lanes(
+                    bufs6, nb6, f6, cnt6, precision=LANE_P),
+                "rans_decode_kernel")},
+        "k3_twin_full_ms": k3_full_ref_s * 1e3,
         "k4_short_ms": cuda_ms(lambda: trl.rans_scan_dense(
             fs_s, cs_s, ln_dev, LANE_P), 10),
         "d1_short_ms": cuda_ms(lambda: trl.rans_decode_lanes(
@@ -433,11 +521,27 @@ def main() -> int:
         "d1_twin_short_ms": {a: b * 1e3 for a, b in d1_ref_s.items()},
         "encode_lanes_dense_s": [dense_s] + engine_s["dense"],
         "encode_lanes_words_s": [words_s] + engine_s["words"],
-        "decode_lanes_s": d1_s, "host_rans_encode_s": host_enc_s,
+        "decode_lanes_first_call_s": d1_first_s,
+        "decode_lanes_with_copies_s": d1_copies,
+        "host_rans_encode_s": host_enc_s,
         "host_rans_decode_s": host_dec_s}
     report["phase6"] = {**t6, "d1_dtypes": d1_dtypes, "lane_alphabet": s6}
     k["rans_scan_dense"] = (t6["k4_full_ms"], t6["k4_twin_full_ms"])
-    k["rans_decode_lanes"] = (t6["d1_full_ms"], t6["d1_twin_full_ms"])
+    coded = int(len6.sum().item())
+    bounds["rans_scan_dense"] = bound(
+        2 * 4 * fs_full.numel() + nbytes(len6) + 2 * 3 * fs_full.numel()
+        + 4 * BATCH, OPS["rans_scan_dense"] * coded)
+    bounds["rans_words_scan_p12"] = bound(
+        nbytes(flipped, f6, c6, prec_full, len6) + 4 * 5 * BATCH
+        + 4 * (int(nb_w.sum()) // 4), OPS["rans_words_scan"] * coded)
+    # D1's own inputs and outputs: the streams' bytes, one table a lane
+    # (the frequencies), the per-lane scalars, the symbols
+    bounds["rans_decode_lanes_p12"] = bound(
+        int(nb_d.sum()) + nbytes(f6, nb6, cnt6, out6),
+        (OPS["rans_decode_lanes"] + (s6 - 1).bit_length()) * coded)
+    report["phase6"]["bounds"] = {
+        a: bounds[a] for a in ("rans_words_scan_p12",
+                               "rans_decode_lanes_p12")}
     print(f"phase 6: {BATCH} lanes x {n_sym} symbols at P={LANE_P} "
           f"(alphabet {s6}): K4 and K3 engines give identical buffers, "
           f"all equal the host RansEncoder, D1 gives every lane back, K4 "
@@ -445,8 +549,13 @@ def main() -> int:
           f"P=20 shared); launches {launches6}; K4/K3/D1 at full shape "
           f"{t6['k4_full_ms']:.3f} / {t6['k3_full_ms']:.3f} / "
           f"{t6['d1_full_ms']:.3f} ms, twins K4 "
-          f"{t6['k4_twin_full_ms']:.1f} / D1 {t6['d1_twin_full_ms']:.1f} "
-          f"ms; zero-frequency check {t6['zero_freq_check_ms']:.4f} ms "
+          f"{t6['k4_twin_full_ms']:.1f} / K3 {t6['k3_twin_full_ms']:.1f} / "
+          f"D1 {t6['d1_twin_full_ms']:.1f} ms; bounds K3 "
+          f"{bounds['rans_words_scan_p12']['bound_ms']:.4f} / D1 "
+          f"{bounds['rans_decode_lanes_p12']['bound_ms']:.4f} ms; the "
+          f"kernels alone (device trace) "
+          f"{ {a: round(b, 3) for a, b in t6['kernel_only_ms'].items()} } ms"
+          f"; zero-frequency check {t6['zero_freq_check_ms']:.4f} ms "
           f"(with its readback {t6['zero_freq_check_wall_ms']:.4f} ms); "
           f"at L={BATCH}, T={K3_T} K4 "
           f"{t6['k4_short_ms']:.3f} ms vs twin {k4_ref_s * 1e3:.1f} ms, D1 "
@@ -455,7 +564,9 @@ def main() -> int:
           f"(dtypes {d1_dtypes}); rans_encode_lanes dense "
           f"{[round(x * 1e3, 1) for x in t6['encode_lanes_dense_s']]} ms, "
           f"words {[round(x * 1e3, 1) for x in t6['encode_lanes_words_s']]}"
-          f" ms; D1 with its copies {d1_s * 1e3:.1f} ms; host RansEncoder "
+          f" ms; D1 with its copies "
+          f"{[round(x * 1e3, 1) for x in d1_copies]} ms (its first call, "
+          f"resident inputs, {d1_first_s * 1e3:.1f} ms); host RansEncoder "
           f"{host_enc_s:.3f} s, RansDecoder {host_dec_s:.3f} s over the "
           f"same lanes")
 
@@ -491,16 +602,26 @@ def main() -> int:
         _check(got.dtype == want.dtype, f"D1 dtype {got.dtype} vs twin "
                f"{want.dtype} (P={prec}, phase 7)")
         err = max_abs_err(got, want)
-        chunks7.append({"precision": prec, "lanes": int(a[0].shape[0]),
-                        "T": int(got.shape[1]), "per_lane": a[2].dim() == 2,
+        lanes7, S7 = int(a[0].shape[0]), int(a[2].shape[-1])
+        n7 = int(np.asarray(a[3]).sum())
+        alone_ms = kernel_only_ms(lambda: real_d1(*a, **kw),
+                                  "rans_decode_kernel")
+        chunks7.append({"precision": prec, "lanes": lanes7,
+                        "T": int(got.shape[1]), "S": S7,
+                        "per_lane": a[2].dim() == 2,
                         "max_abs_err": err, "ms": d1_ms,
-                        "twin_ms": twin_s * 1e3})
+                        "kernel_only_ms": alone_ms,
+                        "twin_ms": twin_s * 1e3,
+                        **bound(int(np.asarray(a[1]).sum())
+                                + nbytes(a[2], got) + 2 * 4 * lanes7,
+                                (OPS["rans_decode_lanes"]
+                                 + (S7 - 1).bit_length()) * n7)})
         errs["rans_decode_lanes"] = max(errs["rans_decode_lanes"], err)
         del want
     del d1_calls
     _check(errs["rans_decode_lanes"] == 0,
            f"D1 != twin on phase 7's streams: {chunks7}")
-    refs, host_ref_s = wall_s(lambda: [_host.decode(b) for b in blobs])
+    refs, host_ref_s = wall_s(lambda: [decode(b) for b in blobs])
     bad = [i for i, (g, r) in enumerate(zip(decoded, refs))
            if g is None or not np.array_equal(g.faces, r.faces)
            or len(g.attributes) != len(r.attributes)
@@ -508,24 +629,31 @@ def main() -> int:
                                      np.asarray(b.values))
                       for a, b in zip(g.attributes, r.attributes))]
     _check(not bad, f"{len(bad)} decoded meshes differ from "
-           f"tpudraco.decode.decode (first {bad[:5]})")
+           f"the port's host decode() (first {bad[:5]})")
     dev_runs7, host_runs7 = [dev_dec_s], []
-    for _ in range(2):  # interleaved: host, device, host
+    stages_runs7 = [stages7]
+    for _ in range(3):  # in turns: host, device, host, device, ...
         host_runs7.append(wall_s(lambda: tdb.BatchDecoder()
                                  .decode_blobs_shared_topology(blobs))[1])
-        if len(dev_runs7) < 2:
-            dev_runs7.append(wall_s(lambda: bd.decode_blobs_shared_topology(
-                blobs, entropy="device", device=dev))[1])
+        dev_runs7.append(wall_s(lambda: bd.decode_blobs_shared_topology(
+            blobs, entropy="device", device=dev))[1])
+        stages_runs7.append(dict(bd.timings))
+    # D1's line in the table: the group decode's largest call
+    main7 = max(chunks7, key=lambda c: c["lanes"] * c["T"])
+    k["rans_decode_lanes"] = (main7["ms"], main7["twin_ms"])
+    bounds["rans_decode_lanes"] = {a: main7[a] for a in (
+        "bound_ms", "bound_by", "bytes", "operations")}
     report["phase7"] = {"device_s": dev_runs7, "host_s": host_runs7,
                         "per_blob_decode_s": host_ref_s,
-                        "stages_first_run_s": stages7,
-                        "stages_last_run_s": dict(bd.timings),
+                        "stages_by_device_run_s": stages_runs7,
                         "d1_calls": chunks7}
     print(f"phase 7: BatchDecoder(entropy='device') decoded {BATCH} blobs, "
-          f"all equal tpudraco.decode.decode, 0 host blobs, launches "
+          f"all equal the port's host decode(), 0 host blobs, no slot table "
+          f"built or uploaded, launches "
           f"{launches7}; D1 equals its twin on every call's per-lane tables "
-          f"{[(c['precision'], c['lanes'], round(c['ms'], 3), round(c['twin_ms'], 1)) for c in chunks7]}"
-          f" (P, lanes, ms, twin ms); device entropy "
+          f"{[(c['precision'], c['lanes'], c['S'], round(c['ms'], 3), round(c['kernel_only_ms'], 3), round(c['twin_ms'], 1), round(c['bound_ms'], 4)) for c in chunks7]}"
+          f" (P, lanes, S, wrapper ms, kernel alone ms, twin ms, bound "
+          f"ms); device entropy "
           f"{[round(x, 3) for x in dev_runs7]} "
           f"s vs host entropy {[round(x, 3) for x in host_runs7]} s "
           f"(per-blob decode() {host_ref_s:.3f} s); stages "
@@ -548,7 +676,13 @@ def main() -> int:
     kernels = [{"name": name, "route": "cuda", "source": src + f,
                 "replaces": rep, "launches": counts[name],
                 "max_abs_err": errs[name], "ms": k[name][0],
-                "plain_ms": k[name][1]} for name, f, rep, counts in table]
+                "plain_ms": k[name][1],
+                "bound_ms": bounds[name]["bound_ms"],
+                "bound_by": bounds[name]["bound_by"],
+                "library_ms": library_ms.get(name),
+                "bytes": bounds[name]["bytes"],
+                "share_of_bound": bounds[name]["bound_ms"] / k[name][0]}
+               for name, f, rep, counts in table]
     print("chip_smoke details: " + json.dumps({**report, "kernels": kernels}),
           file=sys.stderr)
     print(json.dumps({"kernels": kernels}))
@@ -558,8 +692,8 @@ def main() -> int:
     return 0
 
 
-def _host_rans_encode(host, dist, lane) -> bytes:
-    enc = host.RansEncoder(dist, precision=LANE_P)
+def _host_rans_encode(coder, dist, lane) -> bytes:
+    enc = coder(dist, precision=LANE_P)
     enc.write_all(lane)
     return enc.flush()
 

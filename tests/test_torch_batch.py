@@ -1,9 +1,12 @@
 """torchdraco's batched position encoder, end to end on the CPU: its .drc
 bytes against tpudraco.encode.encode and against tpudraco's own device
-batch encoder, in process and in a process where JAX cannot be imported."""
+batch encoder, in process, and in processes that show the port loads
+nothing of JAX or of the tpudraco package."""
 
+import glob
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -16,6 +19,8 @@ import torch  # noqa: E402
 
 import torchdraco  # noqa: E402
 from torchdraco.device import resolve  # noqa: E402
+from torchdraco.encode import Config as PortConfig  # noqa: E402
+from torchdraco.models import AttributeType as PortAttributeType  # noqa: E402
 from torchdraco.parallel import batch as tbatch  # noqa: E402
 from tpudraco.encode import Config, encode  # noqa: E402
 from tpudraco.models import AttributeType  # noqa: E402
@@ -24,26 +29,51 @@ from tpudraco.parallel import batch as jbatch  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# a finder that refuses jax, as on a machine where it is not installed
+# a finder that refuses jax and tpudraco, as on a machine with neither
 _BLOCK_JAX = """
 import sys
 class _NoJax:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in ("jax", "jaxlib", "tpudraco"):
             raise ModuleNotFoundError(f"No module named {name!r}")
         return None
 sys.meta_path.insert(0, _NoJax())
 """
 
+# the slice on the CPU: a batch encode, a device-entropy group decode and
+# the host codec's own encode() and decode(); then what got loaded
 _RUN_SLICE = """
 import json, sys
 sys.path.insert(0, {root!r})
+import numpy as np
 import torchdraco
-from torchdraco.parallel import BatchEncoder
+from torchdraco.decode import decode
+from torchdraco.encode import encode
+from torchdraco.parallel import BatchDecoder, BatchEncoder
 pos, faces = torchdraco.make_mesh_batch(4, 8, 7)
 meshes = torchdraco.build_meshes(pos, faces)
 blobs = BatchEncoder().encode_meshes_device(meshes, bits=11, device="cpu")
+assert blobs == [encode(m) for m in meshes]
+bd = BatchDecoder()
+out = bd.decode_blobs_shared_topology(blobs, entropy="device", device="cpu")
+assert bd.n_host_blobs == 0
+for b, m in zip(blobs, out):
+    ref = decode(b)
+    assert np.array_equal(m.faces, ref.faces)
+    assert np.array_equal(m.attributes[0].values, ref.attributes[0].values)
+foreign = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "tpudraco"))
+print(json.dumps({{"foreign": foreign,
+                  "blobs": [b.hex() for b in blobs]}}))
 """
+
+
+def _run_slice(prefix=""):
+    proc = subprocess.run(
+        [sys.executable, "-c", prefix + _RUN_SLICE.format(root=ROOT)],
+        capture_output=True, text=True, timeout=180, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def _slice_meshes():
@@ -60,6 +90,8 @@ def test_slice_bytes_match_encode_and_jax_batch(bits):
     meshes = _slice_meshes()
     cfg = None if bits == 11 else Config(quant_bits={AttributeType.POSITION:
                                                      bits})
+    port_cfg = None if bits == 11 else PortConfig(
+        quant_bits={PortAttributeType.POSITION: bits})
     enc = tbatch.BatchEncoder()
     got = enc.encode_meshes_device(meshes, bits=bits, entropy="device",
                                    device="cpu")
@@ -70,41 +102,55 @@ def test_slice_bytes_match_encode_and_jax_batch(bits):
         assert g == encode(m, cfg=cfg)
         assert g == j
     # the same depth set through the encoder's Config
-    assert tbatch.BatchEncoder(cfg=cfg).encode_meshes_device(
+    assert tbatch.BatchEncoder(cfg=port_cfg).encode_meshes_device(
         meshes, device="cpu") == got
 
 
-def test_slice_runs_without_jax():
-    """The port's slice in a process that cannot import jax: the bridge
-    loads only tpudraco's numpy host modules, and the bytes are the
-    host encoder's."""
-    code = _BLOCK_JAX + _RUN_SLICE.format(root=ROOT) + """
-assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
-print(json.dumps([b.hex() for b in blobs]))
-"""
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=180, cwd=ROOT)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    blobs = [bytes.fromhex(h) for h in json.loads(
-        proc.stdout.strip().splitlines()[-1])]
+def _slice_reference_blobs():
     pos, faces = torchdraco.make_mesh_batch(4, 8, 7)
-    meshes = torchdraco.build_meshes(pos, faces)
-    assert blobs == [encode(m) for m in meshes]
+    return [encode(m) for m in torchdraco.build_meshes(pos, faces)]
 
 
-def test_port_initializes_no_jax_backend():
-    """With jax installed, a full port encode imports it (through the host
-    codec's tpudraco.ops) but never starts a backend, which on a GPU
-    machine would take most of the card's memory."""
-    code = _RUN_SLICE.format(root=ROOT) + """
-from jax._src import xla_bridge
-assert "tpudraco.ops.pallas_kernels" in sys.modules  # no stub: real ops
-print(json.dumps(sorted(xla_bridge._backends)))
-"""
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=180, cwd=ROOT)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+def test_slice_runs_without_jax():
+    """The port's slice in a process whose import system refuses jax and
+    tpudraco: it runs on the port's own host codec, and the bytes are
+    tpudraco's host encoder's."""
+    got = _run_slice(_BLOCK_JAX)
+    assert got["foreign"] == []
+    assert [bytes.fromhex(h) for h in got["blobs"]] \
+        == _slice_reference_blobs()
+
+
+def test_port_loads_nothing_of_jax_or_tpudraco():
+    """Where jax and tpudraco ARE installed, an encode and a decode
+    through the port still load no module of either (so no JAX backend can
+    start, which on a GPU machine would take most of the card's memory)."""
+    got = _run_slice()
+    assert got["foreign"] == []
+    assert [bytes.fromhex(h) for h in got["blobs"]] \
+        == _slice_reference_blobs()
+
+
+def test_port_sources_import_neither_jax_nor_tpudraco():
+    """No import line of the port or of chip_smoke.py names jax or
+    tpudraco (docstrings may name a counterpart by path), and the bridge
+    module is gone."""
+    files = glob.glob(os.path.join(ROOT, "torchdraco", "**", "*.py"),
+                      recursive=True)
+    files += [os.path.join(ROOT, n) for n in ("chip_smoke.py", "chip_ab.py")]
+    assert len(files) > 40
+    pat = re.compile(
+        r"^\s*(import|from)\s+\.*(jax|jaxlib|tpudraco)\b|"
+        r"^\s*import\s+.*\b(jax|jaxlib|tpudraco)\b|"
+        r"import_module\(\s*['\"](jax|tpudraco)", re.M)
+    hits = []
+    for path in files:
+        with open(path) as f:
+            text = f.read()
+        hits += [(os.path.relpath(path, ROOT), m.group(0).strip())
+                 for m in pat.finditer(text)]
+    assert hits == []
+    assert not os.path.exists(os.path.join(ROOT, "torchdraco", "_host.py"))
 
 
 def test_mesh_batch_and_entry_match_graft_entry():
@@ -137,13 +183,24 @@ def test_host_helpers_match_tpudraco():
         for a, b in zip(tbatch.quantize_positions_host(pos, bits),
                         jbatch.quantize_positions_host(pos, bits)):
             assert np.array_equal(a, b)
-    for cfg in (None, Config(quant_bits={AttributeType.POSITION: 14}),
-                Config(quant_bits={AttributeType.NORMAL: 3}),
-                Config(symbol_coding="length")):
-        assert (tbatch._device_quant_bits(cfg)
-                == jbatch._device_quant_bits(cfg))
-    assert (tbatch._merged_quant_cfg(None, 13, 8, 10)
-            == jbatch._merged_quant_cfg(None, 13, 8, 10))
+    # each package takes its own Config (equal fields, its own classes)
+    for kw in (None, {"quant_bits": {"POSITION": 14}},
+               {"quant_bits": {"NORMAL": 3}}, {"symbol_coding": "length"}):
+        cfgs = []
+        for cls, types in ((PortConfig, PortAttributeType),
+                           (Config, AttributeType)):
+            if kw is None:
+                cfgs.append(None)
+            elif "quant_bits" in kw:
+                cfgs.append(cls(quant_bits={
+                    types[k]: v for k, v in kw["quant_bits"].items()}))
+            else:
+                cfgs.append(cls(**kw))
+        assert (tbatch._device_quant_bits(cfgs[0])
+                == jbatch._device_quant_bits(cfgs[1]))
+    import dataclasses
+    assert (dataclasses.asdict(tbatch._merged_quant_cfg(None, 13, 8, 10))
+            == dataclasses.asdict(jbatch._merged_quant_cfg(None, 13, 8, 10)))
 
 
 def test_gathers_to_torch_layout():

@@ -1,6 +1,7 @@
 """torchdraco's shared-topology batch decoder against tpudraco.decode.decode
 and tpudraco's own BatchDecoder, and the stream-lane slice (port encode,
-port device decode) in a process where JAX cannot be imported."""
+port device decode) in a process where neither JAX nor tpudraco can be
+imported."""
 
 import json
 import os
@@ -23,12 +24,12 @@ from tpudraco.parallel import BatchDecoder as JaxBatchDecoder  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# a finder that refuses jax, as on a machine where it is not installed
+# a finder that refuses jax and tpudraco, as on a machine with neither
 _BLOCK_JAX = """
 import sys
 class _NoJax:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in ("jax", "jaxlib", "tpudraco"):
             raise ModuleNotFoundError(f"No module named {name!r}")
         return None
 sys.meta_path.insert(0, _NoJax())
@@ -89,9 +90,9 @@ def test_shared_topology_decode_matches_decode_and_jax(entropy, uv):
         ref = decode(blob)
         assert _same_mesh(got, ref) and _same_mesh(got, j)
     assert bd.n_host_blobs == 2       # the other topology and the garbage
-    if entropy == "device":
-        assert {"collect_s", "slot_tables_s", "lanes_s",
-                "assemble_s"} <= set(bd.timings)
+    if entropy == "device":  # no slot-table stage any more
+        assert set(bd.timings) == {"collect_s", "lanes_s", "device_stage_s",
+                                   "assemble_s"}
 
 
 def test_device_stage_error_raises(monkeypatch):
@@ -129,8 +130,9 @@ def test_unknown_entropy_mode_raises():
 
 
 def test_lane_calls_split_by_slot_budget(monkeypatch):
-    """A budget of two P=12 slot tables splits the lanes into calls of
-    at most two (one at higher precisions); the symbols do not change."""
+    """A working-set budget of two lanes (streams, tables, output: there
+    are no slot tables) splits the lanes into calls of at most two; the
+    symbols do not change."""
     blobs = _mix()[:4]
     whole = BatchDecoder().decode_blobs_shared_topology(blobs,
                                                         entropy="device")
@@ -141,10 +143,11 @@ def test_lane_calls_split_by_slot_budget(monkeypatch):
         calls.append(buffers.shape[0])
         return real(buffers, *a, **k)
     monkeypatch.setattr(tdb, "rans_decode_lanes", counted)
-    monkeypatch.setattr(tdb, "SLOT_BUDGET_BYTES", 2 * 4 * (1 << 12))
+    assert not hasattr(tdb, "SLOT_BUDGET_BYTES")
+    monkeypatch.setattr(tdb, "LANE_BUDGET_BYTES", 100_000)
     split = BatchDecoder().decode_blobs_shared_topology(blobs,
                                                         entropy="device")
-    assert calls and max(calls) <= 2 and sum(calls) == 4
+    assert len(calls) > 1 and max(calls) <= 2 and sum(calls) == 4
     assert all(_same_mesh(a, b) for a, b in zip(split, whole))
 
 
@@ -162,7 +165,8 @@ meshes = torchdraco.build_meshes(pos, faces)
 blobs = BatchEncoder().encode_meshes_device(meshes, device="cpu")
 bd = BatchDecoder()
 out = bd.decode_blobs_shared_topology(blobs, entropy="device", device="cpu")
-assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
+assert not [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "jaxlib", "tpudraco")]
 print(json.dumps({{"blobs": [b.hex() for b in blobs],
                   "faces": [m.faces.tolist() for m in out],
                   "values": [m.attributes[0].values.tolist() for m in out],
@@ -182,3 +186,25 @@ print(json.dumps({{"blobs": [b.hex() for b in blobs],
         assert np.array_equal(np.asarray(got["faces"][k]), ref.faces)
         assert np.array_equal(np.asarray(got["values"][k], np.float32),
                               np.asarray(ref.attributes[0].values))
+
+
+def test_device_decode_builds_no_slot_table(monkeypatch):
+    """The device stage hands D1 the streams, the frequency tables and the
+    counts: nothing of 2^P entries is built, and D1 takes neither
+    ``slots`` nor ``cums``."""
+    import inspect
+
+    assert not {"slots", "cums"} & set(inspect.signature(
+        tdb.rans_decode_lanes).parameters)
+    seen = []
+    real = tdb.rans_decode_lanes
+
+    def spy(buffers, nbytes, freqs, counts, precision):
+        seen.append((precision, freqs.shape[-1]))
+        return real(buffers, nbytes, freqs, counts, precision=precision)
+    monkeypatch.setattr(tdb, "rans_decode_lanes", spy)
+    blobs = _mix()[:4]
+    out = BatchDecoder().decode_blobs_shared_topology(blobs,
+                                                      entropy="device")
+    assert all(_same_mesh(g, decode(b)) for g, b in zip(out, blobs))
+    assert seen and all(width < 1 << prec for prec, width in seen)

@@ -9,7 +9,9 @@ import pytest
 import torch
 
 import torchdraco
-from torchdraco import _host
+from torchdraco.decode import decode
+from torchdraco.encode import encode
+from torchdraco.entropy.rans import normalize_freq_counts_batch
 from torchdraco.ops import device as tdev
 from torchdraco.ops import rans_lanes as trl
 from torchdraco.parallel import BatchDecoder
@@ -70,7 +72,7 @@ def test_rans_words_kernel_matches_twin(cuda):
     syms[3] = rng.integers(0, 1 << 12, size=n)
     prec = (12 + np.arange(L) % 9).astype(np.int32)
     counts = np.stack([np.bincount(r, minlength=1 << 12) for r in syms])
-    dist, _ = _host.normalize_freq_counts_batch(counts, prec)
+    dist, _ = normalize_freq_counts_batch(counts, prec)
     cums = np.zeros_like(dist)
     cums[:, 1:] = np.cumsum(dist[:, :-1], axis=1)
     lengths = rng.integers(0, n + 1, size=L).astype(np.int32)
@@ -84,11 +86,47 @@ def test_rans_words_kernel_matches_twin(cuda):
     assert torch.equal(words, ref_w)
 
 
+@pytest.mark.parametrize("prec", (12, 20))
+def test_rans_words_reciprocal_is_exact(cuda, prec):
+    """K3 divides by a prepared reciprocal. Tables that put the division at
+    its edges: frequencies of 1, powers of two, one below and above a power
+    of two, a single symbol of frequency 2^P, and one symbol that takes
+    nearly the whole range; every lane at full length, so the state runs
+    up to freq * 2^10 - 1 before each step. Staged rows (small alphabets)
+    and rows read through L2 (a wide one)."""
+    rng = np.random.default_rng(prec)
+    n, total = 3000, 1 << prec
+    tables = [
+        [total],                                     # f = 2^P alone
+        [total - 1, 1],
+        [1] * 64 + [total - 64],
+        [total // 2, total // 4, total // 4],        # powers of two
+        [total // 2 - 1, total // 2 + 1],
+        [3] * 100 + [total - 300],
+        [total // 8 + 1] * 7 + [total - 7 * (total // 8 + 1)],
+    ]
+    for S in (128, 20000):
+        L = len(tables)
+        dist = np.zeros((L, S), np.int32)
+        for i, t in enumerate(tables):
+            dist[i, :len(t)] = t
+        cums = np.cumsum(dist, axis=1, dtype=np.int64) - dist
+        syms = np.stack([rng.choice(len(t), size=n, p=np.asarray(t) / total)
+                         if i % 2 else rng.integers(0, len(t), size=n)
+                         for i, t in enumerate(tables)]).astype(np.int32)
+        args = [torch.from_numpy(a.astype(np.int32)).to(cuda) for a in (
+            syms, dist, cums, np.full(L, prec), np.full(L, n))]
+        words, meta = trl.rans_words_scan(*args)
+        torch.cuda.synchronize()
+        ref_w, ref_m = trl.rans_words_scan_ref(*args)
+        assert torch.equal(meta, ref_m) and torch.equal(words, ref_w)
+
+
 def test_slice_on_cuda_matches_host(cuda):
     pos, faces = torchdraco.make_mesh_batch(20, 12, seed=5)
     meshes = torchdraco.build_meshes(pos, faces)
     blobs = tbatch.BatchEncoder().encode_meshes_device(meshes, device=cuda)
-    assert blobs == [_host.encode(m) for m in meshes]
+    assert blobs == [encode(m) for m in meshes]
 
 
 @pytest.mark.parametrize("prec", (12, 20))
@@ -117,30 +155,35 @@ def _lanes(rng, L, T, prec, alphabet, per_lane):
     syms = rng.integers(0, alphabet, size=(L, T)) ** 2 % alphabet
     tables = np.stack([np.bincount(r, minlength=alphabet) + (not per_lane)
                        for r in (syms if per_lane else syms[:1])])
-    dist, _ = _host.normalize_freq_counts_batch(
+    dist, _ = normalize_freq_counts_batch(
         tables, np.full(len(tables), prec))
     cums = np.zeros_like(dist)
     cums[:, 1:] = np.cumsum(dist[:, :-1], axis=1)
-    slots = np.stack([np.repeat(np.arange(dist.shape[1]), d) for d in dist])
     if not per_lane:
-        dist, cums, slots = dist[0], cums[0], slots[0]
-    return syms.astype(np.int32), dist, cums, slots.astype(np.int32), counts
+        dist, cums = dist[0], cums[0]
+    return syms.astype(np.int32), dist, cums, counts
 
 
 @pytest.mark.parametrize("prec,alphabet,per_lane", [
-    (12, 200, True), (12, 3000, True), (20, 3000, True), (20, 50000, False)])
+    (12, 200, True), (12, 3000, True), (20, 3000, True), (20, 30000, False),
+    (20, 60000, False)])
 def test_rans_decode_kernel_matches_twin(cuda, prec, alphabet, per_lane):
     """Both engines encode on the card; D1 equals its twin and gives the
-    lanes back, through the packed dtypes (P=12) and the generic ones."""
+    lanes back, through the packed dtypes (P=12: uint8 and uint16) and the
+    generic ones, with the cumulative row in shared memory and (alphabet
+    60000) in global memory. The per-lane tables have symbols of frequency
+    0 in the middle and at the end of the alphabet (x^2 mod alphabet skips
+    most values)."""
     rng = np.random.default_rng(prec + alphabet)
-    syms, dist, cums, slots, counts = _lanes(rng, 64, 600, prec, alphabet,
-                                             per_lane)
+    syms, dist, cums, counts = _lanes(rng, 64, 600, prec, alphabet,
+                                      per_lane)
+    if per_lane:
+        assert (dist[:, 1:-1] == 0).any() and (dist[:, -1] == 0).any()
     args = (torch.from_numpy(syms).to(cuda), dist, cums, counts)
     bufs, nbytes = trl.rans_encode_lanes(*args, precision=prec, dense=True)
     bufs_w, nbytes_w = trl.rans_encode_lanes(*args, precision=prec)
     assert np.array_equal(bufs, bufs_w) and np.array_equal(nbytes, nbytes_w)
-    dev_args = (torch.from_numpy(bufs).to(cuda), nbytes, dist, cums,
-                torch.from_numpy(slots).to(cuda), counts)
+    dev_args = (torch.from_numpy(bufs).to(cuda), nbytes, dist, counts)
     n0 = trl.rans_decode_lanes.n_launches
     got = trl.rans_decode_lanes(*dev_args, precision=prec)
     torch.cuda.synchronize()
@@ -162,7 +205,18 @@ def test_shared_topology_decode_on_cuda(cuda):
                                           device=cuda)
     assert bd.n_host_blobs == 0 and trl.rans_decode_lanes.n_launches > n0
     for blob, got in zip(blobs, out):
-        ref = _host.decode(blob)
+        ref = decode(blob)
         assert np.array_equal(got.faces, ref.faces)
         assert np.array_equal(got.attributes[0].values,
                               ref.attributes[0].values)
+
+
+def test_rans_decode_refuses_unnormalized_table_on_cuda(cuda):
+    """A table that does not sum to 2^P has remainders without a symbol:
+    the wrapper refuses it before any launch."""
+    dist = np.array([1000, 2000, 1000])          # 4000 != 4096
+    bufs = torch.zeros((1, 8), dtype=torch.uint8, device=cuda)
+    n0 = trl.rans_decode_lanes.n_launches
+    with pytest.raises(ValueError, match="not a normalized rANS table"):
+        trl.rans_decode_lanes(bufs, np.array([4]), dist, np.array([3]))
+    assert trl.rans_decode_lanes.n_launches == n0

@@ -167,3 +167,30 @@ def test_collect_words_refuses_overflow():
     meta[0, 0] = 9
     with pytest.raises(ValueError, match="capacity"):
         trl.collect_words(np.zeros((1, 4), np.uint32), meta, 8)
+
+
+@pytest.mark.parametrize("lo,hi", [(1, 1 << 12), (1 << 12, 1 << 17),
+                                   (1 << 17, (1 << 20) + 1)])
+def test_words_kernel_reciprocal_formula_is_exact(lo, hi):
+    """K3 (csrc/rans_words.cu, ``table_entry``) divides the state by a
+    frequency f with q = umulhi(x, m) >> s. For every f of the range and
+    states at the edges the coder can reach (x <= f * 2^10 - 1; multiples
+    of f, one below, one below the next; the largest; random ones) the
+    quotient is floor(x / f), m fits 32 bits and x * m fits 64. f = 1 is
+    the kernel's flagged case (q = 0, x' = x << P + c) and is left out."""
+    f = np.arange(max(lo, 2), hi, dtype=np.uint64)
+    b = np.array([int(v).bit_length() for v in f], dtype=np.uint64)
+    pow2 = (f & (f - 1)) == 0
+    k = np.maximum(32, 2 * b + 10)
+    m = np.where(pow2, 1 << 31, (np.uint64(1) << k) // f + 1)
+    s = np.where(pow2, b - 2, k - 32)
+    assert int(m.max()) < 1 << 32 and int(s.max()) < 32
+    rng = np.random.default_rng(lo)
+    states = [f * 1024 - 1]
+    for j in (1, 2, 3, 511, 512, 1000, 1023):
+        states += [f * j, f * j - 1, f * j + f - 1]
+    states += [(rng.random(len(f)) * (f * 1024).astype(np.float64))
+               .astype(np.uint64) for _ in range(8)]
+    for x in states:
+        assert int((x * m).max()) < 1 << 63
+        assert np.array_equal(((x * m) >> np.uint64(32)) >> s, x // f)

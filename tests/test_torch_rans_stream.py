@@ -221,9 +221,12 @@ def test_encode_direct_coded_streams_matches_host():
         assert got[i] == w.getvalue(), f"stream {i}"
 
 
-def _decode_case(prec, alpha_max, per_lane=True):
+def _decode_case(prec, alpha_max, per_lane=True, holes=False):
     """tests/test_rans_lanes.py's packed/generic decode grid: L=24,
-    T=600, ragged counts, a per-lane alphabet each (or one shared)."""
+    T=600, ragged counts, a per-lane alphabet each (or one shared). With
+    ``holes`` a lane's symbols are squares modulo its alphabet, so its
+    table has symbols of frequency 0 in the middle and at the end. The
+    slot tables are for the JAX side only."""
     rng = np.random.RandomState(11)
     L, T = 24, 600
     counts = rng.randint(1, T + 1, L).astype(np.int64)
@@ -242,6 +245,8 @@ def _decode_case(prec, alpha_max, per_lane=True):
     for i in range(L):
         a = rng.randint(2, alpha_max)
         s = rng.randint(0, a, counts[i])
+        if holes:
+            s = s.astype(np.int64) ** 2 % a
         syms[i, :counts[i]] = s[::-1]                 # reversed feed
         dists.append(shared if shared is not None else normalize_freq_counts(
             np.bincount(s if len(s) else [0], minlength=a), prec))
@@ -258,26 +263,82 @@ def _decode_case(prec, alpha_max, per_lane=True):
     return syms, freqs, cums, slots, counts
 
 
-@pytest.mark.parametrize("prec,alpha_max,per_lane", [
-    (12, 50, True), (12, 400, True), (13, 60, True), (14, 300, True),
-    (12, 50, False), (18, 3000, True), (20, 40000, False)])
-def test_decode_twin_matches_jax(prec, alpha_max, per_lane):
+@pytest.mark.parametrize("prec,alpha_max,per_lane,holes", [
+    (12, 50, True, False), (12, 400, True, False), (13, 60, True, False),
+    (14, 300, True, False), (12, 50, False, False), (18, 3000, True, False),
+    (20, 40000, False, False), (12, 400, True, True), (20, 3000, True, True),
+    (20, 3000, True, False)])
+def test_decode_twin_matches_jax(prec, alpha_max, per_lane, holes):
     """Both JAX scans (packed P <= 14: uint8/uint16; generic: int16/int32)
-    and their dtypes; the port's own encoder feeds both decoders."""
+    and their dtypes; the port's own encoder feeds both decoders. The
+    port's twin searches the cumulative row; JAX reads a slot table."""
     syms, freqs, cums, slots, counts = _decode_case(prec, alpha_max,
-                                                    per_lane)
+                                                    per_lane, holes)
+    if holes:  # zero frequencies inside and at the end of an alphabet
+        assert ((freqs[:, 1:-1] == 0) & (freqs[:, 2:] > 0)).any()
     bufs, nbytes = trl.rans_encode_lanes(torch.from_numpy(syms), freqs,
                                          cums, counts, precision=prec)
     want = np.asarray(jrl.rans_decode_lanes(
         jnp.asarray(bufs), jnp.asarray(nbytes), jnp.asarray(freqs),
         jnp.asarray(cums), jnp.asarray(slots), counts, precision=prec))
-    got = trl.rans_decode_lanes(torch.from_numpy(bufs), nbytes, freqs, cums,
-                                slots, counts, precision=prec).numpy()
+    got = trl.rans_decode_lanes(torch.from_numpy(bufs), nbytes, freqs,
+                                counts, precision=prec).numpy()
     assert got.dtype == want.dtype
     assert np.array_equal(got, want)
     for i, n in enumerate(counts):
         assert np.array_equal(got[i, :n].astype(np.int64),
                               syms[i, :n][::-1])
+
+
+def test_decode_never_returns_zero_frequency_symbol():
+    """A table with holes at the start, in the middle and at the end: the
+    remainder on each hole's boundary decodes to the next symbol of
+    frequency > 0, as JAX's slot table gives it."""
+    dist = np.array([0, 1000, 0, 0, 2000, 1096, 0, 0])
+    cums = np.concatenate([[0], np.cumsum(dist)[:-1]])
+    slots = np.repeat(np.arange(len(dist)), dist).astype(np.int32)
+    stream = np.array([1, 4, 5, 5, 4, 1, 1, 5, 4, 4] * 9, np.int64)
+    syms = stream[::-1].astype(np.int32)[None, :]
+    n = np.array([len(stream)], np.int64)
+    bufs, nbytes = trl.rans_encode_lanes(torch.from_numpy(syms), dist, cums,
+                                         n, precision=12)
+    want = np.asarray(jrl.rans_decode_lanes(
+        jnp.asarray(bufs), jnp.asarray(nbytes),
+        jnp.asarray(dist.astype(np.uint32)),
+        jnp.asarray(cums.astype(np.uint32)), jnp.asarray(slots), n))
+    got = trl.rans_decode_lanes(torch.from_numpy(bufs), nbytes, dist,
+                                n).numpy()
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert np.array_equal(got[0].astype(np.int64), stream)
+    assert (dist[got[0]] > 0).all()
+
+
+@pytest.mark.parametrize("tables", ("short", "long", "empty"))
+def test_decode_refuses_unnormalized_table(tables):
+    """A remainder at or past a table's total has no symbol (JAX's
+    zero-filled slot table answers 0 there): the port refuses a table that
+    does not sum to 2^P for any lane that has symbols; a lane without
+    symbols may carry any table."""
+    dist = np.array([[1000, 2000, 1096], [1000, 2000, 1096]])
+    if tables == "short":
+        dist[1, 2] = 1000                      # sums to 4000
+    elif tables == "long":
+        dist[1, 2] = 1100                      # sums to 4100
+    else:
+        dist[1] = 0                            # a padding row
+    bufs = torch.zeros((2, 8), dtype=torch.uint8)
+    bufs[:, 3] = 1
+    with pytest.raises(ValueError, match="table 1 is not a normalized"):
+        trl.rans_decode_lanes(bufs, np.array([4, 4]), dist, np.array([3, 3]))
+    out = trl.rans_decode_lanes(bufs, np.array([4, 0]), dist,
+                                np.array([3, 0]))
+    assert out.shape == (2, 3) and out.dtype == torch.uint8
+    shared = trl.rans_decode_lanes(bufs, np.array([4, 4]), dist[0],
+                                   np.array([3, 3]))
+    assert torch.equal(shared[0], out[0])
+    with pytest.raises(ValueError, match="table 0 is not a normalized"):
+        trl.rans_decode_lanes(bufs, np.array([4, 4]), dist[1],
+                              np.array([3, 3]))
 
 
 def test_decode_wide_alphabet_low_precision():
@@ -295,8 +356,8 @@ def test_decode_wide_alphabet_low_precision():
         jnp.asarray(bufs), jnp.asarray(nbytes),
         jnp.asarray(dist.astype(np.uint32)),
         jnp.asarray(cums.astype(np.uint32)), jnp.asarray(slots), n))
-    got = trl.rans_decode_lanes(torch.from_numpy(bufs), nbytes, dist, cums,
-                                slots, n).numpy()
+    got = trl.rans_decode_lanes(torch.from_numpy(bufs), nbytes, dist,
+                                n).numpy()
     assert got.dtype == want.dtype == np.int32
     assert np.array_equal(got, want)
     assert np.array_equal(got[0].astype(np.int64), stream)
@@ -306,13 +367,12 @@ def test_decode_rejects_streams_without_bytes():
     """JAX reads a wrapped index for nbytes == 0; the port refuses a lane
     with symbols and no metadata byte, or more bytes than its row."""
     dist = np.array([4096])
-    args = (np.zeros(1, np.int64), dist, np.zeros(1), np.zeros(4096),
-            np.array([3]))
+    args = (np.zeros(1, np.int64), dist, np.array([3]))
     bufs = torch.zeros((1, 8), dtype=torch.uint8)
     with pytest.raises(ValueError, match="lane 0"):
         trl.rans_decode_lanes(bufs, *args)
     with pytest.raises(ValueError, match="lane 0"):
         trl.rans_decode_lanes(bufs, np.array([9]), *args[1:])
     out = trl.rans_decode_lanes(bufs, np.zeros(1, np.int64), dist,
-                                np.zeros(1), np.zeros(4096), np.array([0]))
+                                np.array([0]))
     assert out.shape == (1, 16) and not out.any()  # 2 * cap, sentinel 0

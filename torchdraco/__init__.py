@@ -1,15 +1,19 @@
-"""torchdraco — the batched Draco position encoder on PyTorch and CUDA.
+"""torchdraco — a Draco-bitstream mesh codec with its batch planes on
+PyTorch and CUDA.
 
-A port of tpudraco's device plane to one NVIDIA Hopper card. The host codec
-(connectivity, quantization, table serialization, ``.drc`` assembly) is
-tpudraco's own, reached through ``torchdraco._host``; the device work is
-three hand-written CUDA kernels, each beside a plain PyTorch twin:
+A port of tpudraco to one NVIDIA Hopper card, standing on its own: no
+module here imports JAX or anything of the ``tpudraco`` package. The host
+codec (``wire/``, ``models/``, ``entropy/``, ``encode/``, ``decode/``,
+``shared/``, ``utils/``, ``native/``: numpy and C++) is the port's own copy
+of tpudraco's, at the same relative paths and byte for byte the same
+codec; the device work is hand-written CUDA kernels, each beside a plain
+PyTorch twin:
 
-  ops/device.py       K1 predict_residual, K2 histogram (the fused step)
-  ops/rans_lanes.py   K3 rans_words_scan (the multi-lane rANS coder)
-  parallel/batch.py   BatchEncoder.encode_meshes_device (the main path)
-
-No module here imports JAX.
+  ops/device.py             K1 predict_residual, K2 histogram (fused step)
+  ops/rans_lanes.py         K3 rans_words_scan, K4 rans_scan_dense (the
+                            multi-lane rANS coder), D1 rans_decode_lanes
+  parallel/batch.py         BatchEncoder.encode_meshes_device
+  parallel/decode_batch.py  BatchDecoder.decode_blobs_shared_topology
 """
 
 from __future__ import annotations
@@ -37,14 +41,14 @@ def make_mesh_batch(batch: int, n: int, seed: int = 0):
 
 def build_meshes(positions: np.ndarray, faces: np.ndarray) -> list:
     """One position-only Mesh per row of ``positions``."""
-    from . import _host
+    from .models import AttributeDomain, AttributeType, MeshBuilder
 
     meshes = []
     for p in positions:
-        mb = _host.MeshBuilder()
+        mb = MeshBuilder()
         mb.set_connectivity_attribute(faces)
-        mb.add_attribute(p, _host.AttributeType.POSITION,
-                         _host.AttributeDomain.POSITION)
+        mb.add_attribute(p, AttributeType.POSITION,
+                         AttributeDomain.POSITION)
         meshes.append(mb.build())
     return meshes
 

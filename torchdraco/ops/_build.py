@@ -46,8 +46,8 @@ _SIGNATURES = {
     "tdr_rans_words": [_P, _P, _P, _I64, _P, _P, _I64, _I64, _I64, _P, _P,
                        _P],
     "tdr_rans_dense": [_P, _P, _P, _I64, _I64, _I32, _P, _P, _P, _P],
-    "tdr_rans_decode": [_P, _I64, _P, _P, _P, _I64, _I64, _P, _I64, _P,
-                        _I64, _I64, _I32, _I32, _P, _P],
+    "tdr_rans_decode": [_P, _I64, _P, _P, _I64, _I64, _P, _I64, _I64, _I32,
+                        _I32, _I32, _P, _P],
 }
 
 

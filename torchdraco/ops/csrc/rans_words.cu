@@ -6,102 +6,238 @@
 // the (freq, cum) pre-gather, the reversed feed, the flush framing and the
 // word compaction. The TPU kernel ran all lanes in lockstep as (8, 128)
 // vector registers, so it had to emit a word and a flag at every step and
-// leave the compaction to a sort over (L, T) slots. Here one thread owns
-// one lane and runs its recurrence in uint32_t: for each symbol, read in
-// reverse, it looks up (freq, cum) in its own table row, renormalises
-// (at most 3 bytes while state >= (4 * freq) << 8), and steps
-// state = ((state / freq) << prec) + state % freq + cum. Renormalisation
-// bytes pack little-endian into a 64-bit accumulator and each full 32-bit
-// word goes straight to the lane's compacted output row, so no sort. At the
-// end the thread writes meta = [nwords, nacc, partial word, packed flush
-// state, flush byte count], the framing of rans.rs:48-68.
+// leave the compaction to a sort over (L, T) slots.
 //
-// Bound on this card: latency, and occupancy. The recurrence is sequential
-// within a lane, so each step waits on a dependent table load and a 32-bit
-// division. 512 lanes are 512 threads, 16 warps, which occupy a few of the
-// 132 SMs; most of the card idles. Symbols arrive in a (n, L) layout so the
-// lanes of a warp read neighbouring addresses at each step. Splitting lanes
-// into interleaved sub-streams (PAPERS.md: Recoil) is what would fill the
-// card; that changes nothing in the bytes only if the split is undone on
-// the host, and is work for a later change.
+// Bound on this card: the length of the dependent chain, not bytes. A lane
+// is one recurrence of n steps (12,288 on the encode path), each step
+// renormalising (at most 3 bytes while state >= (4 * freq) << 8) and
+// stepping state = ((state / freq) << prec) + state % freq + cum. The bytes
+// (symbols, tables, words) would take the card tens of microseconds.
+//
+// Design: one block per lane, so 512 lanes are 512 blocks over all 132 SMs
+// and each chain has an SM scheduler nearly to itself. Only the state
+// recurrence stays on the chain. Thread 0 (the consumer) runs it; warps
+// 1..3 (the producers) run one tile of TILE symbols ahead of it:
+//   - they read the lane's symbols in reverse with coalesced loads, look
+//     up (freq, cum) in the lane's table rows, which the block stages in
+//     shared memory when both rows fit STAGE_MAX_BYTES and reads through
+//     L2 otherwise, and prepare the division as a multiplication (below);
+//   - they write one 16-byte entry per symbol into the next of two tiles
+//     in shared memory, holding everything the step needs that does not
+//     depend on the state: the renormalisation limit, cum, the multiplier
+//     and shift of the division, and 2^P - freq;
+//   - they copy the words the consumer packed in the previous tile from
+//     shared memory to the lane's compacted output row, coalesced.
+// One __syncthreads per tile hands the tiles over. The consumer loads the
+// next entry before it works on this one, counts the renormalisation
+// bytes with three independent compares (x >= L, x >= 256 L, x >= 65536 L
+// are the loop's three tests, since (x >> 8) >= L iff x >= 256 L), and
+// steps x' = q * (2^P - f) + (x + c), which is (q << P) + (x - q f) + c.
+// On the chain stay a compare, a shift, a multiply-high, a shift and a
+// multiply-add.
+//
+// The division by a reciprocal, and why it is exact. After renormalising,
+// x <= f * 2^10 - 1 (the loop shifts while x >= (4 * f) << 8, and three
+// shifts always suffice since x < 2^(P + 10), P <= 20). Let b be the bit
+// length of f (2^(b-1) <= f < 2^b, b <= 21). q = umulhi(x, m) >> s, that
+// is floor(x * m / 2^k) with k = 32 + s.
+//   - f no power of two (so 2 <= b <= 20): k = max(32, 2b + 10) and
+//     m = floor(2^k / f) + 1, so m * f = 2^k + e with 0 < e <= f. Then
+//       x * m / 2^k = x / f + x * e / (f * 2^k),
+//     and the excess x * e / (f * 2^k) < (f * 2^10) * f / (f * 2^k)
+//     = f * 2^10 / 2^k <= 2^(b + 10) / 2^(2b + 10) = 2^-b < 1 / f. The
+//     fractional part of x / f is at most 1 - 1 / f, so the floor does not
+//     move: floor(x * m / 2^k) = floor(x / f). m fits 32 bits: at k = 32,
+//     f >= 3 gives m <= 2^32 / 3 + 1; at k = 2b + 10,
+//     m < 2^(k - b + 1) + 1 = 2^(b + 11) + 1 <= 2^31 + 1.
+//   - f a power of two, b >= 2: m = 2^31, s = b - 2: umulhi(x, 2^31) is
+//     x >> 1, so q = x >> (b - 1), exact.
+//   - f = 1: q = x is no umulhi of a 32-bit m. The entry sets m = 0 (so
+//     q = 0) and a flag that makes the step x' = x * 2^P + c instead of
+//     x + c: the same value, since x - q f = 0.
+// A frequency of 0 is outside the coder's contract (the callers refuse it
+// before the launch); here it gets m = 0 and codes garbage, no fault.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void rans_words_kernel(
+constexpr int TILE = 256;                   // symbols per tile
+constexpr int WTILE = (3 * TILE) / 4 + 2;   // full words a tile can emit + 1
+constexpr int THREADS = 128;                // warp 0: consumer; 1-3: producers
+constexpr int PRODUCERS = THREADS - 32;
+constexpr int64_t STAGE_MAX_BYTES = 64 * 1024;  // both table rows together
+
+constexpr uint32_t F_IS_ONE = 32u;  // flag beside the shift in entry.x
+
+// entry.x = (f << 10) | flag | s: the limit (4 * f) << 8 has its low 10
+// bits free. entry.y = cum, entry.z = m, entry.w = 2^P - f.
+__device__ __forceinline__ uint4 table_entry(uint32_t f, uint32_t c,
+                                             uint32_t p) {
+  uint32_t mult = 0, shift = 0;
+  if (f == 1) {
+    shift = F_IS_ONE;
+  } else if (f != 0) {
+    const uint32_t b = 32u - (uint32_t)__clz((int)f);
+    if ((f & (f - 1u)) == 0) {
+      mult = 1u << 31;
+      shift = b - 2u;
+    } else {
+      const uint32_t k = 2u * b + 10u > 32u ? 2u * b + 10u : 32u;
+      mult = (uint32_t)((1ull << k) / f) + 1u;
+      shift = k - 32u;
+    }
+  }
+  return make_uint4((f << 10) | shift, c, mult, (1u << p) - f);
+}
+
+__global__ void __launch_bounds__(THREADS) rans_words_kernel(
     const int32_t* __restrict__ sym, const int32_t* __restrict__ dist,
     const int32_t* __restrict__ cums, int64_t S,
     const int32_t* __restrict__ prec, const int32_t* __restrict__ lengths,
-    int64_t L, int64_t n, int64_t cap_w, uint32_t* __restrict__ words,
+    int64_t n, int64_t cap_w, int stage, uint32_t* __restrict__ words,
     uint32_t* __restrict__ meta) {
-  const int64_t l = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= L) return;
+  extern __shared__ uint4 smem[];
+  uint4* tiles = smem;                                   // [2][TILE]
+  uint32_t* wtiles = (uint32_t*)(tiles + 2 * TILE);      // [2][WTILE]
+  int64_t* wbase = (int64_t*)(wtiles + 2 * WTILE + 2);   // [2], 8-aligned
+  int32_t* wcount = (int32_t*)(wbase + 2);               // [2]
+  int32_t* rows = wcount + 2;                            // [2][S] if staged
+
+  const int64_t l = blockIdx.x;
+  const int tid = threadIdx.x;
   const uint32_t p = (uint32_t)prec[l];
   const uint32_t l_base = 4u << p;
   int64_t len = lengths[l];
   len = len < 0 ? 0 : (len > n ? n : len);
+  const int32_t* srow = sym + l * n;
   const int32_t* drow = dist + l * S;
   const int32_t* crow = cums + l * S;
   uint32_t* wrow = words + l * cap_w;
+  if (stage) {
+    for (int64_t i = tid; i < S; i += THREADS) {
+      rows[i] = drow[i];
+      rows[S + i] = crow[i];
+    }
+    drow = rows;
+    crow = rows + S;
+    __syncthreads();
+  }
+  const int64_t ntiles = (len + TILE - 1) / TILE;
+
+  // tile k holds the coded symbols t in [k * TILE, (k + 1) * TILE), read
+  // from the row's end (reversed feed)
+  auto produce = [&](int64_t k, int first, int step) {
+    uint4* tile = tiles + (k & 1) * TILE;
+    const int64_t t0 = k * TILE;
+    for (int i = first; i < TILE && t0 + i < len; i += step) {
+      int32_t s = srow[n - 1 - (t0 + i)];
+      s = s < 0 ? 0 : (s >= S ? (int32_t)(S - 1) : s);
+      tile[i] = table_entry((uint32_t)drow[s], (uint32_t)crow[s], p);
+    }
+  };
+
+  if (ntiles > 0) produce(0, tid, THREADS);
+  __syncthreads();
 
   uint32_t x = l_base;
   uint64_t acc = 0;  // pending little-endian bytes, nacc of them
   uint32_t nacc = 0;
   int64_t nw = 0;
-  for (int64_t t = 0; t < len; ++t) {
-    int32_t s = sym[(n - 1 - t) * L + l];  // reversed feed
-    s = s < 0 ? 0 : (s >= S ? (int32_t)(S - 1) : s);
-    const uint32_t f = (uint32_t)drow[s];
-    const uint32_t c = (uint32_t)crow[s];
-    const uint32_t limit = (4u * f) << 8;
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      if (x >= limit) {
-        acc |= (uint64_t)(x & 0xFFu) << (8 * nacc);
-        ++nacc;
-        x >>= 8;
+  // iteration k: the consumer codes tile k while the producers fill tile
+  // k + 1 and write out the words of tile k - 1
+  for (int64_t k = 0; k <= ntiles; ++k) {
+    if (tid == 0) {
+      if (k < ntiles) {
+        const uint4* tile = tiles + (k & 1) * TILE;
+        uint32_t* wt = wtiles + (k & 1) * WTILE;
+        const int64_t t0 = k * TILE;
+        const int cnt = (int)(len - t0 < TILE ? len - t0 : TILE);
+        int w = 0;
+        uint4 next = tile[0];
+#pragma unroll 4
+        for (int i = 0; i < cnt; ++i) {
+          const uint4 e = next;
+          next = tile[i + 1 < TILE ? i + 1 : i];
+          // everything up to the compares is independent of x
+          const uint32_t lim = e.x & ~0x3FFu;  // (4 * f) << 8 <= 2^30
+          const uint32_t lim1 = lim >> 24 ? 0xFFFFFFFFu : lim << 8;
+          const uint32_t lim2 = lim >> 16 ? 0xFFFFFFFFu : lim << 16;
+          const uint32_t s = e.x & 31u;
+          const uint32_t h = (e.x & F_IS_ONE) ? (1u << p) : 1u;
+          const uint32_t nb = (uint32_t)(x >= lim) + (uint32_t)(x >= lim1)
+                              + (uint32_t)(x >= lim2);  // x < 2^30 always
+          const uint32_t out = x & ((1u << (8 * nb)) - 1u);
+          acc |= (uint64_t)out << (8 * nacc);
+          nacc += nb;
+          x >>= 8 * nb;
+          const uint32_t q = __umulhi(x, e.z) >> s;
+          x = q * e.w + (x * h + e.y);
+          // <= 3 carried + <= 3 new bytes: at most one full word. Stored
+          // every step and kept only when full, so the step has no branch
+          const bool full = nacc >= 4;
+          wt[w] = (uint32_t)acc;
+          w += full;
+          acc = full ? acc >> 32 : acc;
+          nacc -= full ? 4u : 0u;
+        }
+        wbase[k & 1] = nw;
+        wcount[k & 1] = w;
+        nw += w;
+      }
+    } else if (tid >= 32) {
+      if (k + 1 < ntiles) produce(k + 1, tid - 32, PRODUCERS);
+      if (k > 0) {
+        const uint32_t* wt = wtiles + ((k - 1) & 1) * WTILE;
+        const int64_t base = wbase[(k - 1) & 1];
+        const int cnt = wcount[(k - 1) & 1];
+        for (int i = tid - 32; i < cnt; i += PRODUCERS)
+          if (base + i < cap_w) wrow[base + i] = wt[i];
       }
     }
-    x = ((x / f) << p) + x % f + c;
-    if (nacc >= 4) {  // <= 3 carried + <= 3 new: at most one full word
-      if (nw < cap_w) wrow[nw] = (uint32_t)acc;
-      ++nw;
-      acc >>= 32;
-      nacc -= 4;
-    }
+    __syncthreads();
   }
-  const uint32_t st = x - l_base;
-  const uint32_t nbytes = st < (1u << 6) ? 1u
-                          : st < (1u << 14) ? 2u
-                          : st < (1u << 22) ? 3u
-                                            : 4u;
-  const uint32_t packed = st + ((nbytes - 1) << (6 + 8 * (nbytes - 1)));
-  uint32_t* m = meta + l * 5;
-  m[0] = (uint32_t)nw;  // may exceed cap_w only on invalid input: the
-  m[1] = nacc;          // host checks it before reading the words
-  m[2] = (uint32_t)acc;
-  m[3] = packed;
-  m[4] = nbytes;
+
+  if (tid == 0) {
+    const uint32_t st = x - l_base;
+    const uint32_t nbytes = st < (1u << 6) ? 1u
+                            : st < (1u << 14) ? 2u
+                            : st < (1u << 22) ? 3u
+                                              : 4u;
+    const uint32_t packed = st + ((nbytes - 1) << (6 + 8 * (nbytes - 1)));
+    uint32_t* m = meta + l * 5;
+    m[0] = (uint32_t)nw;  // may exceed cap_w only on invalid input: the
+    m[1] = nacc;          // host checks it before reading the words
+    m[2] = (uint32_t)acc;
+    m[3] = packed;
+    m[4] = nbytes;
+  }
 }
 
 }  // namespace
 
-// sym (n, L) int32, the lanes' unreversed streams column by column;
-// dist/cums (L, S) int32 per-lane tables; prec, lengths (L,) int32;
-// words (L, cap_w) and meta (L, 5) uint32 outputs.
+// sym (L, n) int32, the lanes' unreversed streams row by row; dist/cums
+// (L, S) int32 per-lane tables; prec, lengths (L,) int32; words (L, cap_w),
+// zeroed by the caller, and meta (L, 5) uint32 outputs.
 extern "C" int tdr_rans_words(const void* sym, const void* dist,
                               const void* cums, int64_t S, const void* prec,
                               const void* lengths, int64_t L, int64_t n,
                               int64_t cap_w, void* words, void* meta,
                               void* stream) {
   if (L == 0) return 0;
-  const int threads = 64;
-  const int64_t blocks = (L + threads - 1) / threads;
-  rans_words_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+  const int stage = 2 * S * (int64_t)sizeof(int32_t) <= STAGE_MAX_BYTES;
+  const size_t fixed = 2 * TILE * sizeof(uint4)
+                       + (2 * WTILE + 2) * sizeof(uint32_t)
+                       + 2 * sizeof(int64_t) + 2 * sizeof(int32_t);
+  const size_t smem = fixed + (stage ? 2 * S * sizeof(int32_t) : 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      rans_words_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)(fixed + STAGE_MAX_BYTES));
+  if (err != cudaSuccess) return (int)err;
+  rans_words_kernel<<<(unsigned)L, THREADS, smem, (cudaStream_t)stream>>>(
       (const int32_t*)sym, (const int32_t*)dist, (const int32_t*)cums, S,
-      (const int32_t*)prec, (const int32_t*)lengths, L, n, cap_w,
+      (const int32_t*)prec, (const int32_t*)lengths, n, cap_w, stage,
       (uint32_t*)words, (uint32_t*)meta);
   return (int)cudaGetLastError();
 }

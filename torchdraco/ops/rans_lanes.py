@@ -40,15 +40,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import _host
 from ..device import resolve
+from ..entropy.rans import (
+    normalize_freq_counts, normalize_freq_counts_batch,
+    rans_precision_for_bit_length, serialize_rans_table,
+    serialize_rans_tables_batch,
+)
+from ..entropy.symbol_coding import DIRECT_CODED, bit_length_u64
+from ..wire.byte_io import ByteWriter
+from ..wire.varint import leb128_bytes, leb128_write
 from . import _build
 from .device import _cuda_stream, _require
 
 MAX_RENORM_PER_SYMBOL = 3
 _U32 = 0xFFFFFFFF
 # the precisions a lane may take: Draco's DirectCoded schedule gives 12-20
-# (``rans_precision_for_bit_length``), and a decode slot table has 2^P rows
+# (``rans_precision_for_bit_length``); K3's reciprocal division is exact up
+# to 20 (``csrc/rans_words.cu``)
 MAX_PRECISION = 20
 
 
@@ -203,8 +211,8 @@ def rans_words_scan_ref(symbols, dist, cums, prec, lengths):
 
 def rans_words_scan(symbols, dist, cums, prec, lengths):
     """K3: see ``rans_words_scan_ref`` for the contract, which the kernel
-    meets bit for bit. On CUDA the kernel reads the symbols transposed to
-    (n, L), so the lanes of a warp load neighbouring addresses."""
+    meets bit for bit. On CUDA one block codes one lane and reads its
+    (n,) row as it lies."""
     if symbols.device.type == "cpu":
         return rans_words_scan_ref(symbols, dist, cums, prec, lengths)
     dev = symbols.device
@@ -227,9 +235,9 @@ def rans_words_scan(symbols, dist, cums, prec, lengths):
     meta = torch.empty((L, 5), dtype=torch.int32, device=dev)
     if L == 0:
         return words, meta
-    sym_t = symbols.t().contiguous()
+    sym = symbols.contiguous()
     lib = _build.load()
-    rc = lib.tdr_rans_words(sym_t.data_ptr(), dist.data_ptr(),
+    rc = lib.tdr_rans_words(sym.data_ptr(), dist.data_ptr(),
                             cums.data_ptr(), int(dist.shape[1]),
                             prec.data_ptr(), lengths.data_ptr(), L, n, cap_w,
                             words.data_ptr(), meta.data_ptr(),
@@ -288,9 +296,9 @@ def append_flush(buffers, counts, packed, nflush):
 def assemble_payloads(bls, tables, blobs) -> list[bytes]:
     """DirectCoded payload per lane: [tag, bit-length, table,
     leb128(len), stream]."""
-    tag = bytes((_host.DIRECT_CODED,))
+    tag = bytes((DIRECT_CODED,))
     return [b"".join((tag, bytes((int(bl),)), tb,
-                      _host.leb128_bytes(len(blob)), blob))
+                      leb128_bytes(len(blob)), blob))
             for bl, tb, blob in zip(bls, tables, blobs)]
 
 
@@ -317,7 +325,7 @@ def encode_group_entropy_device(symbols: torch.Tensor,
     if patho.any():
         rows = np.flatnonzero(patho)
         rows_dev = torch.from_numpy(rows).to(dev)
-        d_host, ns_host = _host.normalize_freq_counts_batch(
+        d_host, ns_host = normalize_freq_counts_batch(
             counts[rows_dev].cpu().numpy(), prec[rows_dev].cpu().numpy())
         d = torch.from_numpy(d_host.astype(np.int32)).to(dev)
         dist[rows_dev] = d
@@ -331,9 +339,9 @@ def encode_group_entropy_device(symbols: torch.Tensor,
     lengths = torch.full((B,), n_sym, dtype=torch.int32, device=dev)
     words, meta = rans_words_scan(symbols.reshape(B, n_sym), dist, cums,
                                   prec, lengths)
-    bls = np.clip(_host.bit_length_u64((n_sym - counts0).astype(np.uint64))
+    bls = np.clip(bit_length_u64((n_sym - counts0).astype(np.uint64))
                   + 1, 1, 18)
-    tables = _host.serialize_rans_tables_batch(dist_np, ns)
+    tables = serialize_rans_tables_batch(dist_np, ns)
     meta_np = meta.cpu().numpy().view(np.uint32)
     w = max(int(meta_np[:, 0].max()), 1) if B else 1
     words_np = words[:, :w].cpu().numpy().view(np.uint32)
@@ -546,7 +554,7 @@ def encode_streams_device(symbol_streams, freq_counts, precision: int = 12,
     """Pad streams into lanes on one shared table, run the lane coder on
     ``device`` and slice each lane's bytes: bit-exact with the host
     ``RansEncoder`` over ``normalize_freq_counts(freq_counts, precision)``."""
-    dist = _host.normalize_freq_counts(freq_counts, precision)
+    dist = normalize_freq_counts(freq_counts, precision)
     cums = np.concatenate(([0], np.cumsum(dist)[:-1]))
     L = len(symbol_streams)
     T = max(len(s) for s in symbol_streams)
@@ -577,11 +585,11 @@ def encode_direct_coded_streams_device(streams, device=None) -> list[bytes]:
     dists: list[np.ndarray] = []
     for i, s in enumerate(streams):
         num_nonzero = int(np.count_nonzero(s))
-        bl = int(_host.bit_length_u64(np.asarray([num_nonzero]))[0]) + 1
+        bl = int(bit_length_u64(np.asarray([num_nonzero]))[0]) + 1
         bls[i] = max(1, min(18, bl))
-        precisions[i] = _host.rans_precision_for_bit_length(int(bls[i]))
+        precisions[i] = rans_precision_for_bit_length(int(bls[i]))
         counts = np.bincount(s, minlength=1)
-        dists.append(_host.normalize_freq_counts(counts, int(precisions[i])))
+        dists.append(normalize_freq_counts(counts, int(precisions[i])))
 
     blobs: list[bytes] = [b""] * L
     for prec in sorted(set(precisions.tolist())):
@@ -605,11 +613,11 @@ def encode_direct_coded_streams_device(streams, device=None) -> list[bytes]:
 
     out: list[bytes] = []
     for i in range(L):
-        w = _host.ByteWriter()
-        w.write_u8(_host.DIRECT_CODED)
+        w = ByteWriter()
+        w.write_u8(DIRECT_CODED)
         w.write_u8(int(bls[i]))
-        _host.serialize_rans_table(dists[i], w)
-        _host.leb128_write(len(blobs[i]), w)
+        serialize_rans_table(dists[i], w)
+        leb128_write(len(blobs[i]), w)
         w.write_bytes(blobs[i])
         out.append(w.getvalue())
     return out
@@ -632,31 +640,43 @@ def decode_dtype(precision: int, S: int):
     return (torch.int16 if S <= (1 << 15) - 1 else torch.int32), -1
 
 
-def _decode_inputs(buffers, nbytes, freqs, cums, slots, counts,
-                   precision: int):
-    """Checked tensors of a lane decode on the buffers' device, and the
-    output length T: max(counts), or 2 * cap when no lane has a symbol."""
+def _decode_inputs(buffers, nbytes, freqs, counts, precision: int):
+    """Checked tensors of a lane decode on the buffers' device, the
+    inclusive cumulative rows that the symbol search reads, and the output
+    length T: max(counts), or 2 * cap when no lane has a symbol. Every
+    table a lane with symbols decodes on must sum to 2^precision. Anything
+    else is refused (one compare per table and a readback), as
+    ``zero_frequency_hit`` refuses a table the encoder cannot code on: a
+    remainder at or past the table's total has no symbol."""
     _check_precision(precision)
     _require(isinstance(buffers, torch.Tensor) and buffers.dim() == 2
              and buffers.dtype == torch.uint8,
              "buffers must be an (L, cap) uint8 tensor")
     dev = buffers.device
     L, cap = buffers.shape
-    nbytes, freqs, cums, slots, counts = (
-        _as_tensor(a, dev) for a in (nbytes, freqs, cums, slots, counts))
+    # host copies of the per-lane scalars, without a round trip through
+    # the device where the caller gave numpy
+    nbytes_h, counts_h = (
+        (a.cpu() if isinstance(a, torch.Tensor)
+         else torch.from_numpy(np.asarray(a))).to(torch.int64)
+        for a in (nbytes, counts))
+    nbytes, freqs, counts = (_as_tensor(a, dev)
+                             for a in (nbytes, freqs, counts))
     _require(tuple(nbytes.shape) == (L,) and tuple(counts.shape) == (L,),
              f"nbytes/counts must be ({L},)")
-    _require(freqs.shape == cums.shape and freqs.dim() in (1, 2)
-             and freqs.shape[-1] > 0
+    _require(freqs.dim() in (1, 2) and freqs.shape[-1] > 0
              and (freqs.dim() == 1 or freqs.shape[0] == L),
-             f"freqs/cums must be (S,) or ({L}, S) with S > 0")
-    _require(slots.dim() == freqs.dim()
-             and slots.shape[-1] == 1 << int(precision)
-             and (slots.dim() == 1 or slots.shape[0] == L),
-             f"slots must be (2^{precision},) per table, shared or per lane "
-             "as freqs")
-    counts_h = counts.cpu().to(torch.int64)
-    nbytes_h = nbytes.cpu().to(torch.int64)
+             f"freqs must be (S,) or ({L}, S) with S > 0")
+    inc = torch.cumsum(freqs.to(torch.int64) & _U32, dim=-1)
+    used = counts > 0
+    off = (inc[..., -1] != 1 << int(precision)) \
+        & (used if freqs.dim() == 2 else used.any())
+    if bool(off.any()):
+        k = int(torch.nonzero(off.reshape(-1))[0, 0])
+        raise ValueError(
+            f"table {k} is not a normalized rANS table at precision "
+            f"{precision}: its frequencies must sum to "
+            f"{1 << int(precision)}")
     bad = (counts_h > 0) & ((nbytes_h < 1) | (nbytes_h > cap))
     if bool(bad.any()):
         k = int(torch.nonzero(bad)[0, 0])
@@ -664,24 +684,30 @@ def _decode_inputs(buffers, nbytes, freqs, cums, slots, counts,
                          f"needs 1..{cap} bytes, got {int(nbytes_h[k])}")
     T = int(counts_h.max()) if L else 0
     T = T if T > 0 else 2 * cap
-    return nbytes, freqs, cums, slots, counts, T
+    return nbytes, inc, counts, T
 
 
-def rans_decode_lanes_ref(buffers, nbytes, freqs, cums, slots, counts,
+def rans_decode_lanes_ref(buffers, nbytes, freqs, counts,
                           precision: int = 12) -> torch.Tensor:
     """Plain version of D1, with the output contract of the JAX
-    ``rans_decode_lanes``: buffers (L, cap) uint8 streams of nbytes (L,)
-    bytes; counts (L,) symbols per lane; freqs/cums (S,) with slots
-    (2^P,) shared, or (L, S) with (L, 2^P) per lane. Returns (L, T) symbols
-    in decode order (the reverse of the coded order), T = max(counts), in
-    ``decode_dtype(precision, S)`` with its sentinel past each count. A
-    lane with symbols needs 1..cap bytes (JAX would read a wrapped index
-    for nbytes == 0); ValueError otherwise."""
-    nbytes, freqs, cums, slots, counts, T = _decode_inputs(
-        buffers, nbytes, freqs, cums, slots, counts, precision)
+    ``rans_decode_lanes`` but neither a slot table nor a ``cums`` argument
+    (both follow from ``freqs``): buffers (L, cap) uint8 streams of nbytes
+    (L,) bytes; counts (L,) symbols per lane; freqs (S,) shared or (L, S)
+    per lane, normalized at ``precision``.
+    The symbol of a remainder r is the first one whose inclusive
+    cumulative frequency exceeds r (``torch.searchsorted(..., right=True)``
+    on the int64 row), so a symbol of frequency 0, which shares its
+    inclusive sum with its predecessor, is never returned. Returns (L, T)
+    symbols in decode order (the reverse of the coded order),
+    T = max(counts), in ``decode_dtype(precision, S)`` with its sentinel
+    past each count. A lane with symbols needs 1..cap bytes (JAX would
+    read a wrapped index for nbytes == 0) and a normalized table;
+    ValueError otherwise."""
+    nbytes, inc, counts, T = _decode_inputs(buffers, nbytes, freqs, counts,
+                                            precision)
     dev = buffers.device
     L, cap = buffers.shape
-    S = freqs.shape[-1]
+    S = inc.shape[-1]
     dtype, sentinel = decode_dtype(precision, S)
     n = torch.clamp(counts.to(torch.int64), 0, T)
     out = torch.full((L, T), sentinel, dtype=torch.int64, device=dev)
@@ -691,12 +717,11 @@ def rans_decode_lanes_ref(buffers, nbytes, freqs, cums, slots, counts,
     l_base, rmask = 4 << p, (1 << p) - 1
     lane = torch.arange(L, device=dev)
     bufs = buffers.to(torch.int64)
-    if freqs.dim() == 1:
-        freqs, cums, slots = (a[None].expand(L, -1)
-                              for a in (freqs, cums, slots))
-    freqs = freqs.to(torch.int64) & _U32
-    cums = cums.to(torch.int64) & _U32
-    slots = slots.to(torch.int64)
+    if inc.dim() == 1:
+        inc = inc[None].expand(L, -1)
+    inc = inc.contiguous()
+    # exclusive sums: a zero in front of the inclusive row
+    exc = torch.cat([inc.new_zeros((L, 1)), inc[:, :-1]], dim=1)
     pos = torch.clamp(nbytes.to(torch.int64) - 1, 0, cap - 1)
     meta = bufs[lane, pos]
     flag = meta >> 6
@@ -715,49 +740,49 @@ def rans_decode_lanes_ref(buffers, nbytes, freqs, cums, slots, counts,
             byte = bufs[lane, torch.clamp(pos, min=0)]
             x = torch.where(need, (x * 256 + byte) & _U32, x)
         r = x & rmask
-        s = slots[lane, r]
-        sc = torch.clamp(s, 0, S - 1)
-        new = ((x >> p) * freqs[lane, sc] + r - cums[lane, sc]) & _U32
+        s = torch.searchsorted(inc, r[:, None], right=True)[:, 0]
+        s = torch.clamp(s, max=S - 1)
+        c = exc[lane, s]
+        new = ((x >> p) * (inc[lane, s] - c) + r - c) & _U32
         x = torch.where(active, new, x)
         out[:, t] = torch.where(active, s, sentinel)
     return out.to(dtype)
 
 
-def rans_decode_lanes(buffers, nbytes, freqs, cums, slots, counts,
+def rans_decode_lanes(buffers, nbytes, freqs, counts,
                       precision: int = 12) -> torch.Tensor:
     """D1: see ``rans_decode_lanes_ref`` for the contract, which the kernel
     meets bit for bit. Runs on the device of ``buffers``; the other inputs
-    may be tensors or numpy. On CUDA the kernel writes (T, L), transposed
-    back here."""
+    may be tensors or numpy. On CUDA the kernel reads each lane's inclusive
+    cumulative row (built here by one cumsum) and writes the (L, T) output
+    in its final dtype."""
     if not isinstance(buffers, torch.Tensor) or buffers.device.type == "cpu":
-        return rans_decode_lanes_ref(buffers, nbytes, freqs, cums, slots,
-                                     counts, precision)
+        return rans_decode_lanes_ref(buffers, nbytes, freqs, counts,
+                                     precision)
     dev = buffers.device
     _require(dev.type == "cuda", f"unsupported device {dev}")
-    nbytes, freqs, cums, slots, counts, T = _decode_inputs(
-        buffers, nbytes, freqs, cums, slots, counts, precision)
+    nbytes, inc, counts, T = _decode_inputs(buffers, nbytes, freqs, counts,
+                                            precision)
     L, cap = buffers.shape
-    S = freqs.shape[-1]
+    _require(cap < 1 << 31, "a lane's stream must be under 2^31 bytes")
+    S = inc.shape[-1]
     dtype, sentinel = decode_dtype(precision, S)
     bufs = buffers.contiguous()
     nb = nbytes.to(torch.int32).contiguous()
-    f32, c32, s32 = (a.to(torch.int32).contiguous()
-                     for a in (freqs, cums, slots))
-    cn = torch.clamp(counts.to(torch.int64), 0, T).to(torch.int32)
-    out = torch.empty((T, L), dtype=torch.int32, device=dev)
+    inc32 = inc.to(torch.int32).contiguous()  # checked: at most 2^precision
+    cn = torch.clamp(counts, 0, T).to(torch.int32)
+    out = torch.empty((L, T), dtype=dtype, device=dev)
     if L and T:
-        per_lane = freqs.dim() == 2
         lib = _build.load()
         rc = lib.tdr_rans_decode(bufs.data_ptr(), cap, nb.data_ptr(),
-                                 f32.data_ptr(), c32.data_ptr(), S,
-                                 S if per_lane else 0, s32.data_ptr(),
-                                 (1 << int(precision)) if per_lane else 0,
+                                 inc32.data_ptr(), S,
+                                 S if inc.dim() == 2 else 0,
                                  cn.data_ptr(), L, T, int(precision),
-                                 sentinel, out.data_ptr(),
-                                 _cuda_stream(buffers))
+                                 sentinel, out.element_size(),
+                                 out.data_ptr(), _cuda_stream(buffers))
         _build.check(rc, "rans_decode_lanes")
         rans_decode_lanes.n_launches += 1
-    return out.to(dtype).t().contiguous()
+    return out
 
 
 rans_decode_lanes.n_launches = 0

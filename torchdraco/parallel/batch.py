@@ -6,11 +6,10 @@ and quantizes every mesh (the canonical formula, C++), the quantized values
 go to the device as uint16, the fused step (K1, K2) and the multi-lane rANS
 coder (K3) run there, and the host assembles each ``.drc`` from the cached
 connectivity bytes and the device's payload. Output bytes are identical to
-per-mesh ``tpudraco.encode.encode``.
+the per-mesh host ``encode()`` of ``torchdraco.encode``.
 
 The host helpers (``PreparedTopology`` ... ``quantize_positions_host``) are
-carried over from ``tpudraco/parallel/batch.py``, which cannot be imported
-without JAX; they call tpudraco's host modules through ``torchdraco._host``.
+carried over from ``tpudraco/parallel/batch.py``.
 """
 
 from __future__ import annotations
@@ -21,12 +20,20 @@ import hashlib
 import numpy as np
 import torch
 
-from .. import _host
+from .. import native
 from ..device import resolve
+from ..encode import (
+    Config, _traversal_wire_id, encode_header, encode_metadata,
+)
+from ..encode.attribute import encode_attributes
+from ..encode.connectivity import EdgebreakerEncoder
+from ..models import AttributeType, TableView
+from ..native import topo as native_topo
+from ..ops.gathers import build_parallelogram_gathers
 from ..ops.device import encode_step_from_q_cuda
 from ..ops.rans_lanes import encode_group_entropy_device
-
-AttributeType = _host.AttributeType
+from ..shared.sequencer import compute_sequence
+from ..wire.byte_io import ByteWriter
 
 
 class PreparedTopology:
@@ -35,8 +42,8 @@ class PreparedTopology:
     sequences, and the per-device gather tensors of the fused step."""
 
     def __init__(self, mesh) -> None:
-        w = _host.ByteWriter()
-        eb = _host.EdgebreakerEncoder(mesh.faces, mesh.attributes)
+        w = ByteWriter()
+        eb = EdgebreakerEncoder(mesh.faces, mesh.attributes)
         self.conn_out = eb.encode(w)
         self.conn_bytes = w.getvalue()
         self.sequences: dict[int, list[int]] = {}
@@ -46,7 +53,7 @@ class PreparedTopology:
         # str(device) -> gather tensors of the position attribute
         self.dev_gathers: dict[str, dict] = {}
         for i in range(len(mesh.attributes)):
-            self.sequences[i] = _host.compute_sequence(
+            self.sequences[i] = compute_sequence(
                 self.view_for(i), list(self.conn_out.corners_of_edgebreaker))
 
     def view_for(self, i: int):
@@ -54,7 +61,7 @@ class PreparedTopology:
         att_table = None
         if 0 < i <= len(aict.attribute_tables):
             att_table = aict.attribute_tables[i - 1]
-        return _host.TableView(aict.corner_table, att_table)
+        return TableView(aict.corner_table, att_table)
 
 
 def topology_signature(mesh) -> str:
@@ -82,7 +89,7 @@ def _device_quant_bits(cfg) -> dict | None:
     default config."""
     if cfg is None:
         return dict(DEFAULT_DEPTHS)
-    if dataclasses.replace(cfg, quant_bits={}) != _host.Config():
+    if dataclasses.replace(cfg, quant_bits={}) != Config():
         return None
     out = {k: cfg.quant_bits.get(t, DEFAULT_DEPTHS[k])
            for k, t in _DEPTH_TYPES}
@@ -110,25 +117,25 @@ def _merged_quant_cfg(base_cfg, bits: int, normal_bits: int,
             qb[t] = vals[k]
         else:
             qb.pop(t, None)
-    return _host.Config(quant_bits=qb) if qb else None
+    return Config(quant_bits=qb) if qb else None
 
 
 def encode_with_topology(mesh, topo: PreparedTopology, cfg=None,
                          precomputed: dict | None = None) -> bytes:
     """encode() with the connectivity stage replayed from the cache and,
     on the device path, the position payload precomputed."""
-    cfg = cfg or _host.Config()
-    writer = _host.ByteWriter()
-    _host.encode_header(writer, cfg)
+    cfg = cfg or Config()
+    writer = ByteWriter()
+    encode_header(writer, cfg)
     if cfg.metadata:
-        _host.encode_metadata(mesh, writer)
+        encode_metadata(mesh, writer)
     writer.write_bytes(topo.conn_bytes)
-    _host.encode_attributes(
+    encode_attributes(
         mesh.attributes, writer, topo.conn_out, sequences=topo.sequences,
         precomputed=precomputed, quant_bits=cfg.quant_bits,
         symbol_coding=cfg.symbol_coding, prediction=cfg.prediction,
         transform=cfg.transform, pred_cache=topo.pred_gathers,
-        attribute_traversal=_host._traversal_wire_id(
+        attribute_traversal=_traversal_wire_id(
             cfg.attribute_traversal))
     return writer.getvalue()
 
@@ -136,15 +143,15 @@ def encode_with_topology(mesh, topo: PreparedTopology, cfg=None,
 def topology_gathers_np(topo: PreparedTopology, pos_att) -> dict:
     """Per-topology parallelogram gather arrays (numpy): the native pass,
     with the Python pass where the native library is missing."""
-    view = _host.TableView(topo.conn_out.corner_table.corner_table)
+    view = TableView(topo.conn_out.corner_table.corner_table)
     seq = topo.sequences[0]
     unique_of_point = pos_att.unique_indices()
     arrays = view.as_arrays()
     voc = unique_of_point[view.u.faces_points.ravel()]
-    g = _host.native_topo.parallelogram_gathers(
+    g = native_topo.parallelogram_gathers(
         arrays[0], arrays[1], arrays[2], voc, np.asarray(seq))
     if g is None:
-        g = _host.build_parallelogram_gathers(view, seq, unique_of_point)
+        g = build_parallelogram_gathers(view, seq, unique_of_point)
     return {k: np.asarray(v) for k, v in g.items()}
 
 
@@ -216,7 +223,7 @@ def device_encode_group(positions_batch: np.ndarray, topo: PreparedTopology,
     dev = resolve(device)
     B, V, C = positions_batch.shape
     gathers = _device_gathers(topo, pos_att, dev, V)
-    got = _host.native.quantize_batch(positions_batch, bits) \
+    got = native.quantize_batch(positions_batch, bits) \
         if bits <= 16 else None
     if got is not None:
         q_np, mins, delta_max, vmin, vmax = got   # q_np uint16
@@ -301,7 +308,7 @@ class BatchEncoder:
                 payloads = encode_group_entropy_device(dev_c["symbols"],
                                                        dev_c["counts"])
                 for k, i in enumerate(idxs[c0:c0 + self.DEVICE_CHUNK]):
-                    w = _host.ByteWriter()
+                    w = ByteWriter()
                     w.write_u32(int(dev_c["vmin"][k]) & 0xFFFFFFFF)
                     w.write_u32(int(dev_c["vmax"][k]) & 0xFFFFFFFF)
                     pos_idx = next(

@@ -2,13 +2,13 @@
 stage on one device.
 
 Counterpart of the shared-topology decoder of
-``tpudraco/parallel/decode_batch.py``, which cannot be imported without
-JAX (its package's ``__init__`` imports the device batch encoder). The host
+``tpudraco/parallel/decode_batch.py``. The host
 parses and reconstructs the connectivity once for the group, collects every
 blob's DirectCoded symbol streams, decodes all of them as lanes of one
-``rans_decode_lanes`` call per precision (D1), and injects the symbols into
-tpudraco's host attribute chains. Output meshes equal per-blob
-``tpudraco.decode.decode``.
+``rans_decode_lanes`` call per precision (D1, which searches each lane's
+cumulative row: no slot table is built or uploaded), and injects the
+symbols into the host attribute chains. Output meshes equal the per-blob
+host ``decode()`` of ``torchdraco.decode``.
 
 A blob that is malformed, of another topology, or carries a stream the
 lanes cannot take (LengthCoded) goes to the host decoder on its own; those
@@ -23,18 +23,21 @@ import time
 import numpy as np
 import torch
 
-from .. import _host
+from ..decode import _assemble_mesh, decode, decode_header
+from ..decode.attribute import decode_attributes
+from ..decode.connectivity import decode_connectivity
 from ..device import resolve
+from ..entropy.symbol_coding import parse_direct_coded_stream
 from ..ops.rans_lanes import rans_decode_lanes
+from ..wire.byte_io import ByteReader
 
-# Per-call budget for the (lanes, 2^P) int32 slot tables D1 reads. The JAX
-# package kept them to 64 MB for a TPU's HBM: 16 lanes a call at P = 20. A
-# call's device working set is the slot tables plus the lanes' streams
-# (L x cap bytes), tables (L x S x 8 bytes) and output (L x T x 4 bytes,
-# and its cast), all far smaller at Draco's shapes; 4 GiB of slot tables
-# leaves most of an 80 GB card free and holds 1024 lanes at P = 20 (4 MiB a
-# lane), so a 512-blob group decodes in one launch.
-SLOT_BUDGET_BYTES = 4 << 30
+# Per-call budget for a lane decode's device working set: the lanes'
+# streams (L x cap bytes), their tables (freqs and the inclusive row the
+# kernel searches, L x S x 4 bytes each, with the int64 temporaries of the
+# cumsum) and the output (L x T elements of up to 4 bytes). At Draco's
+# shapes that is about 130 KB a lane, so 8 GiB holds tens of thousands of
+# lanes on an 80 GB card and a 512-blob group is one launch.
+LANE_BUDGET_BYTES = 8 << 30
 
 
 def _device_decode_streams(streams: dict, device: torch.device,
@@ -42,47 +45,39 @@ def _device_decode_streams(streams: dict, device: torch.device,
     """rANS-decode independent DirectCoded streams as lanes on ``device``.
     ``streams``: key -> (dist, precision, payload bytes, n_sym). Returns
     key -> (n_sym,) symbols in the host decoder's order. Lanes group by
-    precision, each group in calls whose slot tables fit
-    SLOT_BUDGET_BYTES. Adds the host table build (``slot_tables_s``) and
-    the upload, launch and readback (``lanes_s``) to ``timings``."""
+    precision, each group in calls whose working set fits
+    LANE_BUDGET_BYTES. Adds the packing, upload, launch and readback
+    (``lanes_s``) to ``timings``."""
     out: dict = {}
     by_prec: dict = {}
     for key, (_, prec, _, _) in streams.items():
         by_prec.setdefault(int(prec), []).append(key)
     for prec, keys in sorted(by_prec.items()):
-        per_call = max(1, SLOT_BUDGET_BYTES // ((1 << prec) * 4))
+        S = max(len(streams[k][0]) for k in keys)
+        cap = max(max(len(streams[k][2]) for k in keys), 1)
+        T = max(max(int(streams[k][3]) for k in keys), 1)
+        per_lane = cap + 24 * S + 4 * T
+        per_call = max(1, LANE_BUDGET_BYTES // per_lane)
         for c0 in range(0, len(keys), per_call):
             chunk = keys[c0:c0 + per_call]
             t0 = time.perf_counter()
             L = len(chunk)
-            S = max(len(streams[k][0]) for k in chunk)
-            cap = max(max(len(streams[k][2]) for k in chunk), 1)
             buffers = np.zeros((L, cap), np.uint8)
             nbytes = np.zeros(L, np.int32)
             freqs = np.zeros((L, S), np.int32)
-            cums = np.zeros((L, S), np.int32)
-            slots = np.zeros((L, 1 << prec), np.int32)
             counts = np.zeros(L, np.int64)
             for j, k in enumerate(chunk):
                 dist, _, payload, n_sym = streams[k]
                 buffers[j, :len(payload)] = np.frombuffer(payload, np.uint8)
                 nbytes[j] = len(payload)
                 freqs[j, :len(dist)] = dist
-                cums[j, 1:len(dist)] = np.cumsum(dist)[:-1]
-                slots[j, :int(dist.sum())] = np.repeat(
-                    np.arange(len(dist), dtype=np.int32), dist)
                 counts[j] = n_sym
-            t1 = time.perf_counter()
             got = rans_decode_lanes(
                 torch.from_numpy(buffers).to(device), nbytes,
-                torch.from_numpy(freqs).to(device),
-                torch.from_numpy(cums).to(device),
-                torch.from_numpy(slots).to(device), counts,
+                torch.from_numpy(freqs).to(device), counts,
                 precision=prec).cpu().numpy()
-            t2 = time.perf_counter()
-            timings["slot_tables_s"] = timings.get("slot_tables_s", 0.0) \
-                + t1 - t0
-            timings["lanes_s"] = timings.get("lanes_s", 0.0) + t2 - t1
+            timings["lanes_s"] = timings.get("lanes_s", 0.0) \
+                + time.perf_counter() - t0
             for j, k in enumerate(chunk):
                 out[k] = got[j, :int(streams[k][3])]
     return out
@@ -101,7 +96,7 @@ class BatchDecoder:
     def _host_decode(self, blob):
         self.n_host_blobs += 1
         try:
-            return _host.decode(blob)
+            return decode(blob)
         except Exception:  # per-blob isolation: a bad blob decodes to None
             return None
 
@@ -128,12 +123,12 @@ class BatchDecoder:
         if not blobs:
             return []
         try:
-            r0 = _host.ByteReader(blobs[0])
-            header = _host.decode_header(r0)
+            r0 = ByteReader(blobs[0])
+            header = decode_header(r0)
             if header["flags"] & 0x8000 or header["method"] != 1 \
                     or header["geometry_type"] != 1:
                 raise ValueError("not a plain edgebreaker mesh stream")
-            conn = _host.decode_connectivity(r0)
+            conn = decode_connectivity(r0)
             conn_end = r0.pos
             prefix = bytes(blobs[0][:conn_end])
         except Exception:  # the first blob cannot anchor a group
@@ -150,8 +145,8 @@ class BatchDecoder:
                 continue
 
             def fn(_b=blob):
-                return _host.decode_attributes(
-                    _host.ByteReader(_b, pos=conn_end), conn)
+                return decode_attributes(
+                    ByteReader(_b, pos=conn_end), conn)
             items.append((i, fn))
         self._decode_items_with_phase(conn, items, out)
         return out
@@ -164,7 +159,7 @@ class BatchDecoder:
         whose decode raises becomes None."""
         for i, fn in items:
             try:
-                out[i] = _host._assemble_mesh(conn, fn())
+                out[i] = _assemble_mesh(conn, fn())
             except Exception:  # per-blob isolation
                 out[i] = None
 
@@ -185,14 +180,17 @@ class BatchDecoder:
             found: dict = {}
 
             def collect(att_idx, n_sym, n, reader, _found=found):
-                dist, prec, payload = _host.parse_direct_coded_stream(reader)
+                dist, prec, payload = parse_direct_coded_stream(reader)
                 if int(dist.sum()) != 1 << prec:
+                    # a corrupt or foreign table: this blob takes the host
+                    # path, so that the lanes' own refusal of such a table
+                    # cannot fail the whole group
                     raise ValueError("non-normalized rANS table")
                 _found[att_idx] = (dist, prec, payload, n_sym)
 
             try:
-                _host.decode_attributes(
-                    _host.ByteReader(blob, pos=conn_end), conn,
+                decode_attributes(
+                    ByteReader(blob, pos=conn_end), conn,
                     symbol_source=collect, collect_only=True)
             except Exception:  # e.g. a LengthCoded stream: the host path
                 out[i] = self._host_decode(blob)
@@ -206,10 +204,10 @@ class BatchDecoder:
         for i in matching:
             def fn(_i=i):
                 def inject(att_idx, n_sym, n, reader):
-                    _host.parse_direct_coded_stream(reader)  # advance
+                    parse_direct_coded_stream(reader)  # advance
                     return decoded[(_i, att_idx)][:n_sym].astype(np.uint64)
-                return _host.decode_attributes(
-                    _host.ByteReader(blobs[_i], pos=conn_end), conn,
+                return decode_attributes(
+                    ByteReader(blobs[_i], pos=conn_end), conn,
                     symbol_source=inject)
             items.append((i, fn))
         self._decode_items_with_phase(conn, items, out)
