@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Times torchdraco's rANS kernels K3 (rans_words_scan) and D1
-(rans_decode_lanes) of two checkouts in turns on one NVIDIA GPU.
+"""Times torchdraco's kernels K1 (predict_residual), K2 (histogram), K3
+(rans_words_scan), K4 (rans_scan_dense) and D1 (rans_decode_lanes) of two
+checkouts in turns on one NVIDIA GPU.
 
     python3 chip_ab.py --turns PARENT_DIR CHANGE_DIR
 
@@ -9,13 +10,16 @@ checkout builds its own kernels), and prints one JSON line per run and a
 summary line. ``python3 chip_ab.py --tree DIR`` is one such run. Unpack the
 parent with ``git archive <commit> | tar -x -C _checkout``.
 
-Inputs are the fused step's symbols of 512 grid meshes of 64 x 64 vertices
-(512 lanes x 12,288 symbols): K3 on the encode path's own per-lane tables
-and precisions, K3 and D1 on per-lane tables at precision 12, and D1 on
-per-lane tables at precision 20, the group decode's call. Each kernel's
-outputs are checked (D1 must give every lane back; the two checkouts' K3
-words are compared through a checksum). Times are CUDA-event means over
-``REPS`` launches after a warm-up launch.
+Inputs are 512 grid meshes of 64 x 64 vertices and the fused step's symbols
+of them (512 lanes x 12,288 symbols): K1 and K2 as the encode path calls
+them, K3 on the encode path's own per-lane tables and precisions, K3, K4
+and D1 on per-lane tables at precision 12 (K4 on the pre-gathered int32
+(freq, cum) of those lanes), and D1 on per-lane tables at precision 20, the
+group decode's call. Each kernel's outputs are checked (D1 must give every
+lane back; the two checkouts' outputs of K1, K2, K3 and K4 are compared
+through checksums). Times are CUDA-event means over ``REPS`` launches after
+a warm-up launch; K1 and K2, which take tens of microseconds, are medians
+of ``BATCHES`` means of ``SHORT_REPS`` launches.
 """
 
 import argparse
@@ -26,6 +30,7 @@ import subprocess
 import sys
 
 BATCH, GRID, SEED, BITS, REPS = 512, 64, 1, 11, 10
+BATCHES, SHORT_REPS = 7, 50
 
 
 def run_tree(tree: str) -> dict:
@@ -44,17 +49,25 @@ def run_tree(tree: str) -> dict:
         raise SystemExit("chip_ab needs an NVIDIA GPU")
     dev = torch.device("cuda")
 
-    def cuda_ms(fn) -> float:
+    def cuda_ms(fn, reps: int = REPS) -> float:
         fn()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(REPS):
+        for _ in range(reps):
             fn()
         end.record()
         end.synchronize()
-        return start.elapsed_time(end) / REPS
+        return start.elapsed_time(end) / reps
+
+    def median_ms(fn) -> float:
+        return sorted(cuda_ms(fn, SHORT_REPS)
+                      for _ in range(BATCHES))[BATCHES // 2]
+
+    def sha(*tensors) -> str:
+        return hashlib.sha256(b"".join(
+            t.cpu().numpy().tobytes() for t in tensors)).hexdigest()[:16]
 
     positions, faces = torchdraco.make_mesh_batch(BATCH, GRID, SEED)
     mesh0 = torchdraco.build_meshes(positions[:1], faces)[0]
@@ -62,14 +75,22 @@ def run_tree(tree: str) -> dict:
     gathers = tbatch.gathers_to_torch(
         tbatch.topology_gathers_np(topo, mesh0.position_attribute()), dev)
     q_up, _, _, vmin, vmax = native.quantize_batch(positions, BITS)
-    syms, counts = tdev.encode_step_from_q_cuda(
-        torch.from_numpy(q_up).to(dev), gathers,
-        torch.from_numpy(vmin).to(dev), torch.from_numpy(vmax).to(dev),
-        bits=BITS)
+    q_dev, vmin_dev, vmax_dev = (torch.from_numpy(a).to(dev)
+                                 for a in (q_up, vmin, vmax))
+    syms, counts = tdev.encode_step_from_q_cuda(q_dev, gathers, vmin_dev,
+                                                vmax_dev, bits=BITS)
     flat = syms.view(BATCH, -1)
     n = flat.shape[1]
     full = torch.full((BATCH,), n, dtype=torch.int32, device=dev)
     out = {"tree": tree, "card": torch.cuda.get_device_name(0)}
+
+    # K1 and K2 as the fused step calls them
+    bins = tdev.default_hist_bins(BITS)
+    out["k1_ms"] = median_ms(lambda: tdev.predict_residual(
+        q_dev, gathers, vmin_dev, vmax_dev))
+    out["k1_sha"] = sha(syms)
+    out["k2_ms"] = median_ms(lambda: tdev.histogram(flat, bins))
+    out["k2_sha"] = sha(counts)
 
     # K3 as the encode path calls it
     dist, cums, prec, _ = trl.normalize_tables(counts, n)
@@ -77,9 +98,7 @@ def run_tree(tree: str) -> dict:
     out["k3_encode_ms"] = cuda_ms(lambda: trl.rans_words_scan(
         flat, dist, cums, prec, full))
     words, meta = trl.rans_words_scan(flat, dist, cums, prec, full)
-    out["k3_encode_sha"] = hashlib.sha256(
-        words.cpu().numpy().tobytes() + meta.cpu().numpy().tobytes()
-    ).hexdigest()[:16]
+    out["k3_encode_sha"] = sha(words, meta)
 
     flat_np = flat.cpu().numpy()
     cnt_np = counts.cpu().numpy()
@@ -99,6 +118,13 @@ def run_tree(tree: str) -> dict:
             .to(dev)
         prec_p = torch.full((BATCH,), p, dtype=torch.int32, device=dev)
         flipped = lanes_dev.flip(1)
+        if p == 12:  # K4 on the dense engine's pre-gathered lanes
+            idx = lanes_dev.to(torch.int64)
+            fs, cs = f.gather(1, idx), c.gather(1, idx)
+            out["k4_p12_ms"] = cuda_ms(lambda: trl.rans_scan_dense(
+                fs, cs, full, p))
+            out["k4_p12_sha"] = sha(*trl.rans_scan_dense(fs, cs, full, p))
+            del idx, fs, cs
         out[f"k3_p{p}_ms"] = cuda_ms(lambda: trl.rans_words_scan(
             flipped, f, c, prec_p, full))
         bufs, nbytes = trl.rans_encode_lanes(lanes_dev, f, c, full,

@@ -3,7 +3,9 @@
 this checkout, holds each against its plain PyTorch twin, drives the main
 path (BatchEncoder.encode_meshes_device) over 512 grid meshes of 64 x 64
 vertices, checks every .drc against the port's own host encoder, and times
-the stages. Then the stream-lane plane at the same width: the lane coder
+the stages (eight meshes also through the entry points without a
+``device`` argument, which must reach the card). Then the stream-lane
+plane at the same width: the lane coder
 through both engines (K3 words, K4 dense) and the lane decoder (D1) over
 the fused step's symbols, and BatchDecoder(entropy="device") over the 512
 blobs, checked against the port's own host decoder. That the port's host
@@ -18,9 +20,11 @@ it lists every kernel with its launches on its path, its error against
 its twin, both times, its bound (bytes moved once over 3.35 TB/s, or
 integer operations over 67 Tops/s, whichever is larger) and, for the
 histogram, the time of the one PyTorch call that computes the same
-function. The full report (ptxas resources, every
-timing run, the device trace summary) goes to standard error as one
-JSON line.
+function. K1's and K2's times are medians of BATCHES batches of 50
+launches; K4's twin runs once, over the path's 512 lanes and 512 lanes of
+random (freq, cum) pairs together, which take the kernel's exact path.
+The full report (ptxas resources, every timing run, the device trace
+summary) goes to standard error as one JSON line.
 """
 
 import json
@@ -33,6 +37,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH, GRID, SEED, BITS = 512, 64, 1, 11
 K3_LANES, K3_T = 512, 2048
 LANE_P = 12  # bench.py bench_decode: per-lane tables at precision 12
+BATCHES = 7  # timing batches of the kernels that take tens of microseconds
 # published peaks of one H100 SXM: device memory, and float32 outside the
 # tensor cores, which stands in for the int32 rate of these integer kernels
 HBM_BYTES_S, ALU_OPS_S = 3.35e12, 67e12
@@ -92,6 +97,12 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end) / reps
 
+    def cuda_ms_batches(fn, reps: int = 50) -> dict:
+        """Median, least and most of BATCHES means of ``reps`` launches."""
+        runs = sorted(cuda_ms(fn, reps) for _ in range(BATCHES))
+        return {"median": runs[len(runs) // 2], "min": runs[0],
+                "max": runs[-1]}
+
     def wall_s(fn):
         sync()
         t0 = time.perf_counter()
@@ -111,15 +122,20 @@ def main() -> int:
         operations and readbacks around the launch are left out."""
         fn()
         sync()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            sync()
-        us = [e.time_range.end - e.time_range.start for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and name in e.name]
-        _check(len(us) > 0, f"the trace holds no kernel named *{name}*")
-        return sum(us) / 1e3 / len(us)  # the trace may miss launches
+        us = []
+        for _ in range(3):  # a trace may miss launches, at times all
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                sync()
+            us = [e.time_range.end - e.time_range.start
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and name in e.name]
+            if us:
+                break
+        _check(len(us) > 0, f"three traces hold no kernel named *{name}*")
+        return sum(us) / 1e3 / len(us)
 
     def nbytes(*tensors) -> int:
         return sum(t.numel() * t.element_size() for t in tensors)
@@ -174,6 +190,27 @@ def main() -> int:
     sync()
     errs["predict_residual"] = max_abs_err(
         sym, tdev.predict_residual_ref(q_dev, gathers, vmin_dev, vmax_dev))
+    q_i32 = q_dev.to(torch.int32)
+    k1_errs = [errs["predict_residual"], max_abs_err(
+        tdev.predict_residual(q_i32, gathers, vmin_dev, vmax_dev), sym)]
+    del q_i32
+    rng_k1 = np.random.default_rng(SEED + 1)
+    big_v = 1 << 17  # 768 KB of uint16 q a mesh: the direct-gather kernel
+    _check(tdev.predict_fits_smem(q_dev.shape[1], 3, 2)
+           and tdev.predict_fits_smem(q_dev.shape[1], 3, 4)
+           and not tdev.predict_fits_smem(big_v, 3, 2), "K1 kernel choice")
+    big_q = torch.from_numpy(rng_k1.integers(
+        0, 1 << BITS, size=(8, big_v, 3)).astype(np.uint16)).to(dev)
+    big_g = {name: torch.from_numpy(rng_k1.integers(
+        0, big_v, size=g.numel()).astype(np.int32)).to(dev)
+        if g.dtype == torch.int32 else g for name, g in gathers.items()}
+    big_lo = torch.zeros(8, dtype=torch.int32, device=dev)
+    big_hi = torch.full((8,), (1 << BITS) - 1, dtype=torch.int32, device=dev)
+    k1_errs.append(max_abs_err(
+        tdev.predict_residual(big_q, big_g, big_lo, big_hi),
+        tdev.predict_residual_ref(big_q, big_g, big_lo, big_hi)))
+    del big_q, big_g
+    errs["predict_residual"] = max(k1_errs)
     flat = sym.view(BATCH, -1)
     h_errs = [max_abs_err(tdev.histogram(flat, bins),
                           tdev.bincount_kernel(flat, bins))]
@@ -209,9 +246,10 @@ def main() -> int:
     report["max_abs_err"] = errs
     _check(all(v == 0 for v in errs.values()), f"kernel != twin: {errs}")
     print(f"phase 2: kernels equal their twins exactly: K1 at "
-          f"({BATCH}, {q_dev.shape[1]}, 3); K2 at {bins} bins (shared) and "
-          f"{wide} (global) + drop case; K3 at L={K3_LANES}, T={K3_T}, "
-          f"precisions {k3_prec.min()}-{k3_prec.max()}, ragged lengths")
+          f"({BATCH}, {q_dev.shape[1]}, 3) uint16 and int32 (q rows in "
+          f"shared memory) and at V={big_v} (direct gather); K2 at {bins} "
+          f"bins (shared) and {wide} (global) + drop case; K3 at "
+          f"L={K3_LANES}, T={K3_T}, precisions {k3_prec.min()}-{k3_prec.max()}, ragged lengths")
 
     # ---- phase 3: the main path, counted --------------------------------
     enc = tbatch.BatchEncoder()
@@ -226,6 +264,24 @@ def main() -> int:
     report["patho_lanes"] = n_patho
     _check(all(n > 0 for n in launches.values()),
            f"a kernel of the main path never launched: {launches}")
+    # the entry points without ``device``: the card is the default
+    reset_launch_counts()
+    few = tbatch.BatchEncoder().encode_meshes_device(meshes[:8])
+    few_dec = tdb.BatchDecoder().decode_blobs_shared_topology(
+        blobs[:8], entropy="device")
+    sync()
+    default_launches = {fn.__name__: fn.n_launches for fn in (
+        tdev.predict_residual, tdev.histogram, trl.rans_words_scan,
+        trl.rans_decode_lanes)}
+    report["launches_without_device_argument"] = default_launches
+    _check(all(n > 0 for n in default_launches.values()),
+           f"an entry point called without device did not reach its "
+           f"kernel: {default_launches}")
+    _check(few == blobs[:8] and all(
+        np.array_equal(np.asarray(g.attributes[0].values),
+                       np.asarray(decode(b).attributes[0].values))
+        for g, b in zip(few_dec, blobs[:8])),
+        "the default-device calls disagree with the main path")
     host_blobs = [tbatch.encode_with_topology(m, topo) for m in meshes]
     _check(len(blobs) == BATCH and all(isinstance(b, bytes) and len(b) > 0
                                        for b in blobs), "missing blobs")
@@ -239,7 +295,8 @@ def main() -> int:
     print(f"phase 3: {BATCH} meshes of {GRID}x{GRID} ({mb_in:.1f} MB f32 "
           f"positions) -> {out_bytes} B of .drc; all equal the host plane, "
           f"{len(sample)} sampled equal the port's host encode(); launches "
-          f"{launches}; pathological lanes {n_patho}")
+          f"{launches}; pathological lanes {n_patho}; 8 meshes encoded and "
+          f"decoded without a device argument launched {default_launches}")
 
     # ---- phase 4: times --------------------------------------------------
     t = {}
@@ -274,14 +331,25 @@ def main() -> int:
         "assembly_and_rest": min(dev_runs) - sig_s - step_s - ent_s}
     # kernels against their twins at the main path's shapes
     k = {}
+
+    def run_k1():
+        return tdev.predict_residual(q_dev, gathers, vmin_dev, vmax_dev)
+    k1_runs = cuda_ms_batches(run_k1)
     k["predict_residual"] = (
-        cuda_ms(lambda: tdev.predict_residual(q_dev, gathers, vmin_dev,
-                                              vmax_dev), 50),
+        k1_runs["median"],
         cuda_ms(lambda: tdev.predict_residual_ref(q_dev, gathers, vmin_dev,
                                                   vmax_dev), 10))
     flat = syms_dev.view(BATCH, -1)
-    k["histogram"] = (cuda_ms(lambda: tdev.histogram(flat, bins), 50),
+    k2_runs = cuda_ms_batches(lambda: tdev.histogram(flat, bins))
+    k["histogram"] = (k2_runs["median"],
                       cuda_ms(lambda: tdev.bincount_kernel(flat, bins), 10))
+    alone = {"predict_residual": kernel_only_ms(run_k1, "predict_rows_kernel",
+                                                reps=20),
+             "histogram": kernel_only_ms(
+                 lambda: tdev.histogram(flat, bins), "histogram_smem_kernel",
+                 reps=20)}
+    t["k1_ms_runs"], t["k2_ms_runs"] = k1_runs, k2_runs
+    t["kernel_only_ms"] = dict(alone)
     bounds = {"predict_residual": bound(
         nbytes(q_dev, vmin_dev, vmax_dev, syms_dev, *gathers.values()),
         OPS["predict_residual"] * syms_dev.numel())}
@@ -322,7 +390,12 @@ def main() -> int:
           f" s) vs host plane {t['host_plane_mb_s']:.1f} MB/s (runs "
           f"{[round(x, 3) for x in host_runs]} s); breakdown "
           f"{ {a: round(b, 4) for a, b in t['breakdown_s'].items()} }; "
-          f"kernel/twin ms { {a: (round(b, 4), round(c, 4)) for a, (b, c) in k.items()} }")
+          f"kernel/twin ms { {a: (round(b, 4), round(c, 4)) for a, (b, c) in k.items()} }"
+          f"; K1 median of {BATCHES} x 50 launches {k1_runs['median']:.4f} "
+          f"({k1_runs['min']:.4f}-{k1_runs['max']:.4f}) ms, alone "
+          f"{alone['predict_residual']:.4f} ms; K2 {k2_runs['median']:.4f} "
+          f"({k2_runs['min']:.4f}-{k2_runs['max']:.4f}) ms, alone "
+          f"{alone['histogram']:.4f} ms")
 
     # ---- phase 5: device trace of one warm e2e run ----------------------
     with profile(activities=[ProfilerActivity.CPU,
@@ -412,14 +485,43 @@ def main() -> int:
     host_decode_lanes()  # warm: loads the native library
     host_dec_s = min(wall_s(host_decode_lanes)[1] for _ in range(2))
     # K4 and D1 against their twins on the inputs of the runs above
-    fs_full = f6.to(torch.int64).gather(1, lanes_dev.to(torch.int64))
-    cs_full = c6.to(torch.int64).gather(1, lanes_dev.to(torch.int64))
-    k4 = trl.rans_scan_dense(fs_full, cs_full, len6, LANE_P)
+    # the dense engine's own pre-gather: int32 (freq, cum) a symbol
+    fs_full, cs_full = trl.lane_tables_gather(lanes_dev, f6, c6,
+                                              dtype=torch.int32)
+    # one call of each over 2 x BATCH lanes: the path's own, then random
+    # (freq, cum) pairs with frequency 0 on every 17th step and ragged
+    # lengths, under which the state leaves the coder's range and the
+    # kernel must take its exact path. The twin's time is that of its
+    # n_sym steps, whatever the lanes.
+    rng4 = np.random.default_rng(SEED + 4)
+    fs_rand = (rng4.integers(0, 1 << LANE_P, size=(BATCH, n_sym))
+               // rng4.integers(1, 300, size=(BATCH, n_sym))).astype(np.int32)
+    fs_rand[:, ::17] = 0
+    cs_rand = rng4.integers(0, 1 << LANE_P, size=(BATCH, n_sym),
+                            dtype=np.int32)
+    len_rand = rng4.integers(-3, n_sym + 5, size=BATCH).astype(np.int32)
+    fs_both = torch.cat([fs_full, torch.from_numpy(fs_rand).to(dev)])
+    cs_both = torch.cat([cs_full, torch.from_numpy(cs_rand).to(dev)])
+    len_both = torch.cat([len6, torch.from_numpy(len_rand).to(dev)])
+    del fs_rand, cs_rand
+    guard = torch.full((2 * BATCH,), -1, dtype=torch.int32, device=dev)
+    guard_ref = torch.empty_like(guard)
+    k4 = trl.rans_scan_dense(fs_both, cs_both, len_both, LANE_P,
+                             guard_steps=guard)
     sync()
     k4_ref, k4_full_ref_s = wall_s(lambda: trl.rans_scan_dense_ref(
-        fs_full, cs_full, len6, LANE_P))
-    k4_full_err = max(max_abs_err(a, b) for a, b in zip(k4, k4_ref))
-    del k4, k4_ref
+        fs_both, cs_both, len_both, LANE_P, guard_steps=guard_ref))
+    k4_full_err = max(max_abs_err(a[:BATCH], b[:BATCH])
+                      for a, b in zip(k4, k4_ref))
+    k4_rand_err = max([max_abs_err(a[BATCH:], b[BATCH:])
+                       for a, b in zip(k4, k4_ref)]
+                      + [max_abs_err(guard, guard_ref)])
+    k4_guard = {"path_lanes": int(guard[:BATCH].sum().item()),
+                "random_pair_lanes": int(guard[BATCH:].sum().item()),
+                "random_pair_steps": int(np.clip(len_rand, 0, n_sym).sum())}
+    _check(k4_guard["path_lanes"] == 0 and k4_guard["random_pair_lanes"] > 0,
+           f"K4's exact path: {k4_guard}")
+    del k4, k4_ref, fs_both, cs_both
     d1_ref, d1_full_ref_s = wall_s(lambda: trl.rans_decode_lanes_ref(
         bufs6, nb6, f6, cnt6, precision=LANE_P))
     _check(out6.dtype == d1_ref.dtype, f"D1 dtype {out6.dtype} vs twin "
@@ -437,9 +539,10 @@ def main() -> int:
                       for a, b in zip(k3_full, k3_full_ref))
     del k3_full, k3_full_ref
     errs["rans_words_scan"] = max(errs["rans_words_scan"], k3_full_err)
-    _check(k4_full_err == 0 and d1_full_err == 0 and k3_full_err == 0,
-           f"kernel != twin at the lane shape: K4 {k4_full_err}, D1 "
-           f"{d1_full_err}, K3 {k3_full_err}")
+    _check(k4_full_err == 0 and k4_rand_err == 0 and d1_full_err == 0
+           and k3_full_err == 0,
+           f"kernel != twin at the lane shape: K4 {k4_full_err} (random "
+           f"pairs {k4_rand_err}), D1 {d1_full_err}, K3 {k3_full_err}")
     # edge cases at T = K3_T: ragged and zero lengths, D1 through the
     # packed dtypes (P = 12) and the generic ones (P = 20, one shared table)
     rng6 = np.random.default_rng(SEED + 6)
@@ -447,14 +550,12 @@ def main() -> int:
     ln_s = rng6.integers(0, K3_T + 1, size=BATCH).astype(np.int32)
     ln_s[::5], ln_s[1::5] = K3_T, 0
     ln_dev = torch.from_numpy(ln_s).to(dev)
-    idx = short.to(torch.int64)
-    fs_s, cs_s = f6.to(torch.int64).gather(1, idx), c6.to(torch.int64) \
-        .gather(1, idx)
+    fs_s, cs_s = trl.lane_tables_gather(short, f6, c6, dtype=torch.int32)
     k4 = trl.rans_scan_dense(fs_s, cs_s, ln_dev, LANE_P)
     sync()
     k4_ref, k4_ref_s = wall_s(lambda: trl.rans_scan_dense_ref(
         fs_s, cs_s, ln_dev, LANE_P))
-    errs["rans_scan_dense"] = max([k4_full_err] + [
+    errs["rans_scan_dense"] = max([k4_full_err, k4_rand_err] + [
         max_abs_err(a, b) for a, b in zip(k4, k4_ref)])
     d1_cases = {}
     b12, n12 = trl.rans_encode_lanes(short, f6, c6, ln_dev, precision=LANE_P)
@@ -525,7 +626,10 @@ def main() -> int:
         "decode_lanes_with_copies_s": d1_copies,
         "host_rans_encode_s": host_enc_s,
         "host_rans_decode_s": host_dec_s}
-    report["phase6"] = {**t6, "d1_dtypes": d1_dtypes, "lane_alphabet": s6}
+    report["phase6"] = {**t6, "d1_dtypes": d1_dtypes, "lane_alphabet": s6,
+                        "k4_exact_path_steps": k4_guard}
+    alone.update(rans_words_scan=t6["kernel_only_ms"]["rans_words_kernel"],
+                 rans_scan_dense=t6["kernel_only_ms"]["rans_dense_kernel"])
     k["rans_scan_dense"] = (t6["k4_full_ms"], t6["k4_twin_full_ms"])
     coded = int(len6.sum().item())
     bounds["rans_scan_dense"] = bound(
@@ -546,7 +650,10 @@ def main() -> int:
           f"(alphabet {s6}): K4 and K3 engines give identical buffers, "
           f"all equal the host RansEncoder, D1 gives every lane back, K4 "
           f"and D1 equal their twins there and at T={K3_T} (ragged, zero, "
-          f"P=20 shared); launches {launches6}; K4/K3/D1 at full shape "
+          f"P=20 shared); K4 equals its twin on {BATCH} lanes of random "
+          f"pairs, {k4_guard['random_pair_lanes']} of "
+          f"{k4_guard['random_pair_steps']} steps on its exact path (0 on "
+          f"the path's lanes); launches {launches6}; K4/K3/D1 at full shape "
           f"{t6['k4_full_ms']:.3f} / {t6['k3_full_ms']:.3f} / "
           f"{t6['d1_full_ms']:.3f} ms, twins K4 "
           f"{t6['k4_twin_full_ms']:.1f} / K3 {t6['k3_twin_full_ms']:.1f} / "
@@ -641,6 +748,7 @@ def main() -> int:
     # D1's line in the table: the group decode's largest call
     main7 = max(chunks7, key=lambda c: c["lanes"] * c["T"])
     k["rans_decode_lanes"] = (main7["ms"], main7["twin_ms"])
+    alone["rans_decode_lanes"] = main7["kernel_only_ms"]
     bounds["rans_decode_lanes"] = {a: main7[a] for a in (
         "bound_ms", "bound_by", "bytes", "operations")}
     report["phase7"] = {"device_s": dev_runs7, "host_s": host_runs7,
@@ -681,7 +789,8 @@ def main() -> int:
                 "bound_by": bounds[name]["bound_by"],
                 "library_ms": library_ms.get(name),
                 "bytes": bounds[name]["bytes"],
-                "share_of_bound": bounds[name]["bound_ms"] / k[name][0]}
+                "share_of_bound": bounds[name]["bound_ms"] / k[name][0],
+                "kernel_only_ms": alone[name]}
                for name, f, rep, counts in table]
     print("chip_smoke details: " + json.dumps({**report, "kernels": kernels}),
           file=sys.stderr)

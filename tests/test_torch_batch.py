@@ -21,6 +21,8 @@ import torchdraco  # noqa: E402
 from torchdraco.device import resolve  # noqa: E402
 from torchdraco.encode import Config as PortConfig  # noqa: E402
 from torchdraco.models import AttributeType as PortAttributeType  # noqa: E402
+from torchdraco.ops import rans_lanes as trl  # noqa: E402
+from torchdraco.parallel import BatchDecoder  # noqa: E402
 from torchdraco.parallel import batch as tbatch  # noqa: E402
 from tpudraco.encode import Config, encode  # noqa: E402
 from tpudraco.models import AttributeType  # noqa: E402
@@ -160,7 +162,7 @@ def test_mesh_batch_and_entry_match_graft_entry():
         a, fa = torchdraco.make_mesh_batch(*args)
         b, fb = ge._make_mesh_batch(*args)
         assert np.array_equal(a, b) and np.array_equal(fa, fb)
-    fn, args = torchdraco.entry()
+    fn, args = torchdraco.entry(device="cpu")
     syms, counts = fn(*args)
     jfn, jargs = ge.entry()
     jsyms, jcounts = jfn(*jargs)
@@ -236,9 +238,49 @@ def test_attributes_beyond_position_raise():
 
 
 def test_resolve_never_drops_to_cpu(monkeypatch):
-    assert resolve(None) == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        resolve("cuda")
+    assert resolve("cpu") == torch.device("cpu")
+    for asked in (None, "cuda"):  # the card is the default device
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            resolve(asked)
     with pytest.raises(ValueError):
         resolve("meta")
+
+
+def _entry_point_calls():
+    pos, faces = torchdraco.make_mesh_batch(2, 5, seed=11)
+    meshes = torchdraco.build_meshes(pos, faces)
+    topo = tbatch.PreparedTopology(meshes[0])
+    att = meshes[0].position_attribute()
+    g_np = tbatch.topology_gathers_np(topo, att)
+    blobs = [encode(m) for m in meshes]
+    streams = [np.arange(20) % 5, np.arange(9) % 3]
+    return {
+        "entry": lambda **kw: torchdraco.entry(**kw),
+        "encode_meshes_device": lambda **kw: tbatch.BatchEncoder()
+        .encode_meshes_device(meshes, **kw),
+        "device_encode_group": lambda **kw: tbatch.device_encode_group(
+            pos, topo, att, **kw),
+        "gathers_to_torch": lambda **kw: tbatch.gathers_to_torch(
+            g_np, kw.get("device")),
+        "decode_blobs_shared_topology": lambda **kw: BatchDecoder()
+        .decode_blobs_shared_topology(blobs, entropy="device", **kw),
+        "encode_streams_device": lambda **kw: trl.encode_streams_device(
+            streams, np.bincount(np.concatenate(streams)), **kw),
+        "encode_direct_coded_streams_device": lambda **kw:
+        trl.encode_direct_coded_streams_device(streams, **kw),
+    }
+
+
+@pytest.mark.parametrize("name", (
+    "entry", "encode_meshes_device", "device_encode_group",
+    "gathers_to_torch", "decode_blobs_shared_topology",
+    "encode_streams_device", "encode_direct_coded_streams_device"))
+def test_entry_points_default_to_the_card(monkeypatch, name):
+    """Without ``device`` an entry point asks for the card and, where there
+    is none, raises the error that names CUDA; ``device="cpu"`` runs."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = _entry_point_calls()[name]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()
+    assert call(device="cpu") is not None

@@ -82,7 +82,8 @@ def _mix(uv=False):
 def test_shared_topology_decode_matches_decode_and_jax(entropy, uv):
     blobs = _mix(uv)
     bd = BatchDecoder()
-    out = bd.decode_blobs_shared_topology(blobs, entropy=entropy)
+    out = bd.decode_blobs_shared_topology(blobs, entropy=entropy,
+                                          device="cpu")
     want_jax = JaxBatchDecoder().decode_blobs_shared_topology(
         blobs, entropy=entropy)
     assert out[-1] is None and want_jax[-1] is None
@@ -102,7 +103,8 @@ def test_device_stage_error_raises(monkeypatch):
     monkeypatch.setattr(tdb, "_device_decode_streams", boom)
     bd = BatchDecoder()
     with pytest.raises(RuntimeError, match="device decode broke"):
-        bd.decode_blobs_shared_topology(_mix(), entropy="device")
+        bd.decode_blobs_shared_topology(_mix(), entropy="device",
+                                        device="cpu")
 
 
 def test_host_routing_is_per_blob_and_counted():
@@ -113,12 +115,13 @@ def test_host_routing_is_per_blob_and_counted():
     blobs = [encode(m) for m in meshes]
     blobs[1] = encode(meshes[1], cfg=Config(symbol_coding="length"))
     bd = BatchDecoder()
-    out = bd.decode_blobs_shared_topology(blobs, entropy="device")
+    out = bd.decode_blobs_shared_topology(blobs, entropy="device",
+                                          device="cpu")
     assert bd.n_host_blobs == 1
     assert all(_same_mesh(g, decode(b)) for g, b in zip(out, blobs))
     bd = BatchDecoder()
     out = bd.decode_blobs_shared_topology([b"junk"] + blobs,
-                                          entropy="device")
+                                          entropy="device", device="cpu")
     assert out[0] is None and bd.n_host_blobs == 4
     assert all(_same_mesh(g, decode(b)) for g, b in zip(out[1:], blobs))
     assert bd.decode_blobs_shared_topology([]) == []
@@ -134,8 +137,8 @@ def test_lane_calls_split_by_slot_budget(monkeypatch):
     are no slot tables) splits the lanes into calls of at most two; the
     symbols do not change."""
     blobs = _mix()[:4]
-    whole = BatchDecoder().decode_blobs_shared_topology(blobs,
-                                                        entropy="device")
+    whole = BatchDecoder().decode_blobs_shared_topology(
+        blobs, entropy="device", device="cpu")
     calls = []
     real = tdb.rans_decode_lanes
 
@@ -145,8 +148,8 @@ def test_lane_calls_split_by_slot_budget(monkeypatch):
     monkeypatch.setattr(tdb, "rans_decode_lanes", counted)
     assert not hasattr(tdb, "SLOT_BUDGET_BYTES")
     monkeypatch.setattr(tdb, "LANE_BUDGET_BYTES", 100_000)
-    split = BatchDecoder().decode_blobs_shared_topology(blobs,
-                                                        entropy="device")
+    split = BatchDecoder().decode_blobs_shared_topology(
+        blobs, entropy="device", device="cpu")
     assert len(calls) > 1 and max(calls) <= 2 and sum(calls) == 4
     assert all(_same_mesh(a, b) for a, b in zip(split, whole))
 
@@ -204,7 +207,7 @@ def test_device_decode_builds_no_slot_table(monkeypatch):
         return real(buffers, nbytes, freqs, counts, precision=precision)
     monkeypatch.setattr(tdb, "rans_decode_lanes", spy)
     blobs = _mix()[:4]
-    out = BatchDecoder().decode_blobs_shared_topology(blobs,
-                                                      entropy="device")
+    out = BatchDecoder().decode_blobs_shared_topology(
+        blobs, entropy="device", device="cpu")
     assert all(_same_mesh(g, decode(b)) for g, b in zip(out, blobs))
     assert seen and all(width < 1 << prec for prec, width in seen)

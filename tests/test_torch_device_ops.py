@@ -143,3 +143,62 @@ def test_wrappers_take_the_twin_only_for_cpu_tensors():
             tdev.histogram.n_launches) == before
     with pytest.raises(ValueError):
         tdev.predict_residual(qt.to("meta"), g, vmin, vmax)
+
+
+def test_predict_kernel_is_chosen_from_the_shape():
+    """K1's wrapper picks its kernel from (V, C, itemsize) alone: the
+    shared-memory kernel while the mesh's skewed q row and the staging
+    tile fit the budget, the direct-gather kernel past it."""
+    cap = tdev.PREDICT_SMEM_MAX_BYTES
+    assert tdev.predict_fits_smem(4096, 3, 2)
+    assert tdev.predict_fits_smem(4096, 3, 4)
+    for V, C, size in ((4096, 3, 2), (9000, 3, 4), (9200, 3, 4), (37, 1, 2),
+                       (18000, 3, 2), (18500, 3, 2), (cap // 2, 1, 2),
+                       (1 << 20, 3, 2)):
+        stage = 8 * 32 * C * 4
+        words = -(-V * C * size // 4)
+        row = (words + words // 32) * 4  # one word of padding every 32
+        if tdev.predict_fits_smem(V, C, size):
+            assert row + stage <= cap
+        else:  # at most 16 bytes of rounding and 4 of slack
+            assert row + 20 + stage > cap
+    assert not tdev.predict_fits_smem(1 << 20, 3, 2)
+    assert not tdev.predict_fits_smem(cap // 2, 1, 2)  # no room: the skew
+    assert tdev.predict_fits_smem(9000, 3, 4)
+    assert not tdev.predict_fits_smem(9200, 3, 4)
+    assert tdev.predict_fits_smem(100, 4, 4)
+    assert not tdev.predict_fits_smem(100, 5, 4)  # C past the unrolled 1-4
+
+
+@pytest.mark.parametrize("n", (33, 48, 64, 100))
+def test_predict_rows_skew_spreads_gathers_over_banks(n):
+    """Why K1 skews a mesh's q row in shared memory (one 32-bit word of
+    padding after every 32, csrc/predict_residual.cu ``skewed``). Counted
+    from the traversal of an n x n grid, for the 32 steps a warp gathers
+    at once: the lanes that fall on the busiest of the 32 banks, averaged
+    over the warps. Flat rows of three uint16 put about 11 lanes on one
+    bank on the 64-wide grid (64 vertices are 96 words, a multiple of 32);
+    skewed rows stay near 3 at every width."""
+    pos, faces = torchdraco.make_mesh_batch(1, n, 1)
+    m0 = torchdraco.build_meshes(pos, faces)[0]
+    g = tbatch.topology_gathers_np(tbatch.PreparedTopology(m0),
+                                   m0.position_attribute())
+
+    def busiest(word_of):
+        worst = []
+        for k in ("order", "next", "prev", "opp"):
+            v = g[k].astype(np.int64)
+            per_warp = [np.bincount(np.unique(word_of(v[w:w + 32])) % 32)
+                        .max() for w in range(0, len(v), 32)]
+            worst.append(float(np.mean(per_warp)))
+        return max(worst)
+
+    def flat(v):
+        return 3 * v * 2 // 4  # uint16 element 3v of the row, in words
+
+    def skewed(v):
+        e = 3 * v
+        return (e + e // 64 * 2) * 2 // 4  # 64 uint16 a 128-byte line
+    assert busiest(skewed) < 3.6
+    if n == 64:
+        assert busiest(flat) > 10

@@ -149,6 +149,84 @@ def test_rans_dense_kernel_matches_twin(cuda, prec):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("prec", (12, 20))
+@pytest.mark.parametrize("T,dtype", [(720, torch.int32), (701, torch.int64),
+                                     (200, torch.int32)])
+def test_rans_dense_kernel_on_valid_tables(cuda, prec, T, dtype):
+    """Valid per-lane tables, where no step leaves the reciprocal: ragged,
+    zero and out-of-range lengths, at T no multiple of the kernel's tile of
+    256 (720: rows stored as 32-bit words; 701: as bytes; 200: under one
+    tile), int32 and int64 inputs."""
+    rng = np.random.default_rng(prec + T)
+    L, S = 70, 300
+    syms = rng.integers(0, 40, size=(L, T)) ** 2 % S
+    syms[3] = rng.integers(0, S, size=T)
+    counts = np.stack([np.bincount(r, minlength=S) for r in syms])
+    dist, _ = normalize_freq_counts_batch(counts, np.full(L, prec))
+    cums = np.zeros_like(dist)
+    cums[:, 1:] = np.cumsum(dist[:, :-1], axis=1)
+    ln = rng.integers(-3, T + 5, size=L)
+    ln[0], ln[1], ln[2] = T, 0, T + 9
+    fs, cs = trl.lane_tables_gather(*(torch.from_numpy(a).to(cuda) for a in (
+        syms, dist, cums)), dtype=dtype)
+    ln = torch.from_numpy(ln).to(cuda)
+    guard = torch.full((L,), -1, dtype=torch.int32, device=cuda)
+    got = trl.rans_scan_dense(fs, cs, ln, prec, guard_steps=guard)
+    torch.cuda.synchronize()
+    for g, w in zip(got, trl.rans_scan_dense_ref(fs, cs, ln, prec)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert guard.tolist() == [0] * L
+
+
+@pytest.mark.parametrize("prec", (12, 20))
+def test_rans_dense_guard_steps_match_twin(cuda, prec):
+    """Any uint32 (freq, cum): frequencies of 0, past 2^21 and of bit
+    length 21, states that leave the coder's range. The kernel takes its
+    exact path on the steps the twin counts, and equals it."""
+    rng = np.random.default_rng(prec)
+    L, T = 64, 500
+    fs = rng.integers(0, 1 << 32, size=(L, T)) >> rng.integers(
+        0, 32, size=(L, T))
+    fs[:, ::11] = rng.integers(1 << 20, 1 << 21, size=fs[:, ::11].shape)
+    cs = rng.integers(0, 1 << 32, size=(L, T))
+    ln = rng.integers(0, T + 1, size=L)
+    args = [torch.from_numpy(a).to(cuda) for a in (fs, cs, ln)]
+    guard = torch.full((L,), -1, dtype=torch.int32, device=cuda)
+    want_guard = torch.empty_like(guard)
+    got = trl.rans_scan_dense(*args, prec, guard_steps=guard)
+    torch.cuda.synchronize()
+    want = trl.rans_scan_dense_ref(*args, prec, guard_steps=want_guard)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(guard, want_guard) and int(guard.sum()) > 0
+
+
+@pytest.mark.parametrize("C", (1, 2, 3))
+@pytest.mark.parametrize("dtype", (torch.uint16, torch.int32))
+@pytest.mark.parametrize("B,V,T", [(9, 300, 517), (5, 4096, 4096),
+                                   (3, 50000, 900)])
+def test_predict_residual_kernel_shapes(cuda, C, dtype, B, V, T):
+    """K1 on random gathers: C = 1..3, uint16 and int32 q, T != V, rows
+    that are not 16-byte aligned, and a V past the shared-memory budget
+    (the direct-gather kernel, chosen by the shape)."""
+    past_budget = not tdev.predict_fits_smem(
+        V, C, 2 if dtype == torch.uint16 else 4)
+    assert past_budget == (V == 50000 and (C > 1 or dtype == torch.int32))
+    rng = np.random.default_rng(B * C + T)
+    q = rng.integers(0, 1 << 14, size=(B, V, C))
+    g = {k: torch.from_numpy(rng.integers(0, V, size=T).astype(np.int32))
+         .to(cuda) for k in ("order", "next", "prev", "opp", "fallback")}
+    g["can_para"] = torch.from_numpy(rng.random(T) < 0.7).to(cuda)
+    g["has_fallback"] = torch.from_numpy(rng.random(T) < 0.6).to(cuda)
+    vmin = torch.from_numpy(q.min(axis=(1, 2)).astype(np.int32)).to(cuda)
+    vmax = torch.from_numpy(q.max(axis=(1, 2)).astype(np.int32)).to(cuda)
+    qt = torch.from_numpy(q.astype(
+        np.uint16 if dtype == torch.uint16 else np.int32)).to(cuda)
+    got = tdev.predict_residual(qt, g, vmin, vmax)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tdev.predict_residual_ref(qt, g, vmin, vmax))
+
+
 def _lanes(rng, L, T, prec, alphabet, per_lane):
     counts = rng.integers(0, T + 1, size=L)
     counts[0], counts[1] = T, 0

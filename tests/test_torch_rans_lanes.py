@@ -194,3 +194,90 @@ def test_words_kernel_reciprocal_formula_is_exact(lo, hi):
     for x in states:
         assert int((x * m).max()) < 1 << 63
         assert np.array_equal(((x * m) >> np.uint64(32)) >> s, x // f)
+
+
+def _dense_step_quotient(x: np.ndarray, f: np.ndarray) -> np.ndarray:
+    """The quotient K4 (csrc/rans_dense.cu) takes for a renormalised state
+    x and a frequency f, both uint64 holding uint32 values: the prepared
+    reciprocal of csrc/rans_reciprocal.cuh where 0 < f < 2^21 and
+    x < f << 10, else the exact path's true division, with jnp's answer
+    for f = 0."""
+    fast = (f != 0) & (f < trl.DENSE_FAST_MAX_FREQ) & (x < (f << 10))
+    ff = np.where(fast, f, 3)  # any valid f where the fast path is unused
+    b = np.array([int(v).bit_length() for v in ff], dtype=np.uint64)
+    pow2 = (ff & (ff - 1)) == 0
+    k = np.maximum(32, 2 * b + 10)
+    m = np.where(pow2, 1 << 31, (np.uint64(1) << k) // ff + 1)
+    sh = np.where(pow2, b - np.minimum(b, 2), k - 32)
+    assert int(m.max()) < 1 << 32 and int(sh.max()) < 32
+    xf = np.where(fast, x, 0)
+    assert int((xf * m).max()) < 1 << 63
+    q_fast = np.where(ff == 1, xf, ((xf * m) >> np.uint64(32)) >> sh)
+    q_exact = np.where(f == 0, 0xFFFFFFFF, x // np.maximum(f, 1))
+    return np.where(fast, q_fast, q_exact).astype(np.uint64)
+
+
+@pytest.mark.parametrize("case", ("bit_length_21", "edges", "random"))
+def test_dense_kernel_guarded_quotient_is_exact(case):
+    """K4 takes any uint32 (x, f): its guarded quotient equals x // f (and
+    0xFFFFFFFF for f = 0) on every frequency of bit length 21, which K3's
+    tables never hold, at the edges of the guard, and on random pairs."""
+    rng = np.random.default_rng(21)
+    if case == "bit_length_21":
+        f = np.arange(1 << 20, 1 << 21, dtype=np.uint64)
+        xs = [f * 1024 - 1, f * 1024, f * 1023, f * 1023 - 1, f, f - 1,
+              np.zeros_like(f), np.full_like(f, 0xFFFFFFFF)]
+        xs += [(rng.random(len(f)) * (f * 1024).astype(np.float64))
+               .astype(np.uint64) for _ in range(4)]
+        pairs = [(x, f) for x in xs]
+    elif case == "edges":
+        fe = np.array([0, 1, 2, 3, 4, 5, 255, 256, 257, (1 << 12) - 1,
+                       1 << 12, (1 << 20) - 1, 1 << 20, (1 << 20) + 1,
+                       (1 << 21) - 1, 1 << 21, (1 << 21) + 1, 1 << 22,
+                       (1 << 22) + 5, 1 << 31, 0xFFFFFFFF], dtype=np.uint64)
+        xe = np.array([0, 1, 2, 255, 256, 1023, 1024, 1025, (1 << 22) - 1,
+                       1 << 22, (1 << 30) - 1, 1 << 30, (1 << 31) - 1,
+                       1 << 31, 0xFFFFFFFE, 0xFFFFFFFF], dtype=np.uint64)
+        f, x = (a.ravel() for a in np.meshgrid(fe, xe))
+        near = np.concatenate([(fe.astype(np.int64) << 10) + d
+                               for d in (-1, 0, 1)])
+        keep = (near >= 0) & (near <= 0xFFFFFFFF)
+        pairs = [(x, f), (near[keep].astype(np.uint64),
+                          np.tile(fe, 3)[keep])]
+    else:
+        n = 400_000
+        f = rng.integers(0, 1 << 32, size=n, dtype=np.uint64) \
+            >> rng.integers(0, 32, size=n).astype(np.uint64)
+        x = rng.integers(0, 1 << 32, size=n, dtype=np.uint64) \
+            >> rng.integers(0, 24, size=n).astype(np.uint64)
+        pairs = [(x, f), (np.minimum(x, (f << 10) - (f > 0)), f)]
+    for x, f in pairs:
+        want = np.where(f == 0, 0xFFFFFFFF, x // np.maximum(f, 1))
+        assert np.array_equal(_dense_step_quotient(x, f), want)
+
+
+def test_dense_twin_counts_guard_steps():
+    """The twin's ``guard_steps``: none on valid tables, and on random
+    pairs at least every active step of frequency 0 or past 2^21."""
+    rng = np.random.default_rng(5)
+    L, T, prec = 6, 90, 12
+    syms = rng.integers(0, 30, size=(L, T))
+    counts = np.stack([np.bincount(r, minlength=30) for r in syms])
+    dist, _ = normalize_freq_counts_batch(counts, np.full(L, prec))
+    cums = np.zeros_like(dist)
+    cums[:, 1:] = np.cumsum(dist[:, :-1], axis=1)
+    fs, cs = trl.lane_tables_gather(*(torch.from_numpy(a) for a in (
+        syms, dist, cums)))
+    ln = torch.from_numpy(rng.integers(0, T + 1, size=L))
+    guard = torch.full((L,), -1, dtype=torch.int32)
+    plain = trl.rans_scan_dense_ref(fs, cs, ln, prec)
+    got = trl.rans_scan_dense(fs, cs, ln, prec, guard_steps=guard)
+    assert all(torch.equal(a, b) for a, b in zip(got, plain))
+    assert guard.tolist() == [0] * L
+    wild = torch.from_numpy(rng.integers(0, 1 << 23, size=(L, T)))
+    wild[:, ::7] = 0
+    trl.rans_scan_dense(wild, cs, ln, prec, guard_steps=guard)
+    active = torch.arange(T)[None, :] < ln[:, None]
+    flagged = (active & ((wild == 0)
+                         | (wild >= trl.DENSE_FAST_MAX_FREQ))).sum(dim=1)
+    assert bool((guard >= flagged).all()) and int(flagged.sum()) > 0

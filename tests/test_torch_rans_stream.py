@@ -200,7 +200,7 @@ def _mixed_streams():
 def test_encode_streams_device_matches_host(case):
     streams, counts = case()
     dist = normalize_freq_counts(counts, 12)
-    got = trl.encode_streams_device(streams, counts)
+    got = trl.encode_streams_device(streams, counts, device="cpu")
     assert got == jrl.encode_streams_device(streams, counts)
     for s, blob in zip(streams, got):
         assert blob == _host_encode(s, dist)
@@ -214,7 +214,7 @@ def test_encode_direct_coded_streams_matches_host():
         np.zeros(64, dtype=np.uint64),                      # all zero
         rng.integers(0, 5000, size=1200, dtype=np.uint64),  # high precision
     ]
-    got = trl.encode_direct_coded_streams_device(streams)
+    got = trl.encode_direct_coded_streams_device(streams, device="cpu")
     for i, s in enumerate(streams):
         w = ByteWriter()
         encode_symbols(s, 1, DIRECT_CODED, w)

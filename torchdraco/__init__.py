@@ -55,7 +55,8 @@ def build_meshes(positions: np.ndarray, faces: np.ndarray) -> list:
 
 def entry(device=None):
     """Returns (fn, args): the fused encode step (K1 + K2) on a batch of 8
-    grid meshes, 16 x 16 each, quantized at 11 bits on the host.
+    grid meshes, 16 x 16 each, quantized at 11 bits on the host, with its
+    tensors on ``device`` (None: the card; ``"cpu"`` for the plain twins).
     ``fn(q)`` returns (symbols (8, 256, 3) int32, counts (8, 4096) int32)."""
     import torch
 

@@ -36,30 +36,17 @@
 // On the chain stay a compare, a shift, a multiply-high, a shift and a
 // multiply-add.
 //
-// The division by a reciprocal, and why it is exact. After renormalising,
-// x <= f * 2^10 - 1 (the loop shifts while x >= (4 * f) << 8, and three
-// shifts always suffice since x < 2^(P + 10), P <= 20). Let b be the bit
-// length of f (2^(b-1) <= f < 2^b, b <= 21). q = umulhi(x, m) >> s, that
-// is floor(x * m / 2^k) with k = 32 + s.
-//   - f no power of two (so 2 <= b <= 20): k = max(32, 2b + 10) and
-//     m = floor(2^k / f) + 1, so m * f = 2^k + e with 0 < e <= f. Then
-//       x * m / 2^k = x / f + x * e / (f * 2^k),
-//     and the excess x * e / (f * 2^k) < (f * 2^10) * f / (f * 2^k)
-//     = f * 2^10 / 2^k <= 2^(b + 10) / 2^(2b + 10) = 2^-b < 1 / f. The
-//     fractional part of x / f is at most 1 - 1 / f, so the floor does not
-//     move: floor(x * m / 2^k) = floor(x / f). m fits 32 bits: at k = 32,
-//     f >= 3 gives m <= 2^32 / 3 + 1; at k = 2b + 10,
-//     m < 2^(k - b + 1) + 1 = 2^(b + 11) + 1 <= 2^31 + 1.
-//   - f a power of two, b >= 2: m = 2^31, s = b - 2: umulhi(x, 2^31) is
-//     x >> 1, so q = x >> (b - 1), exact.
-//   - f = 1: q = x is no umulhi of a 32-bit m. The entry sets m = 0 (so
-//     q = 0) and a flag that makes the step x' = x * 2^P + c instead of
-//     x + c: the same value, since x - q f = 0.
-// A frequency of 0 is outside the coder's contract (the callers refuse it
-// before the launch); here it gets m = 0 and codes garbage, no fault.
+// The division is q = umulhi(x, m) >> s on a prepared reciprocal:
+// rans_reciprocal.cuh has the formula and the proof that it is exact for
+// x <= f * 2^10 - 1, which holds here after renormalising (three shifts
+// always suffice since x < 2^(P + 10), P <= 20). A frequency of 0 is
+// outside the coder's contract (the callers refuse it before the launch);
+// here it gets m = 0 and codes garbage, no fault.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "rans_reciprocal.cuh"
 
 namespace {
 
@@ -69,26 +56,12 @@ constexpr int THREADS = 128;                // warp 0: consumer; 1-3: producers
 constexpr int PRODUCERS = THREADS - 32;
 constexpr int64_t STAGE_MAX_BYTES = 64 * 1024;  // both table rows together
 
-constexpr uint32_t F_IS_ONE = 32u;  // flag beside the shift in entry.x
-
 // entry.x = (f << 10) | flag | s: the limit (4 * f) << 8 has its low 10
 // bits free. entry.y = cum, entry.z = m, entry.w = 2^P - f.
 __device__ __forceinline__ uint4 table_entry(uint32_t f, uint32_t c,
                                              uint32_t p) {
-  uint32_t mult = 0, shift = 0;
-  if (f == 1) {
-    shift = F_IS_ONE;
-  } else if (f != 0) {
-    const uint32_t b = 32u - (uint32_t)__clz((int)f);
-    if ((f & (f - 1u)) == 0) {
-      mult = 1u << 31;
-      shift = b - 2u;
-    } else {
-      const uint32_t k = 2u * b + 10u > 32u ? 2u * b + 10u : 32u;
-      mult = (uint32_t)((1ull << k) / f) + 1u;
-      shift = k - 32u;
-    }
-  }
+  uint32_t mult, shift;
+  rans_reciprocal(f, &mult, &shift);
   return make_uint4((f << 10) | shift, c, mult, (1u << p) - f);
 }
 

@@ -26,6 +26,10 @@ from . import _build
 # the largest bin count whose int32 bins fit a Hopper block's 227 KB of
 # dynamic shared memory (232,448 bytes); above it K2 adds into global memory
 HIST_SMEM_MAX_BINS = 232448 // 4
+# K1's shared-memory kernel keeps a mesh's q row and a staging tile of
+# symbols in dynamic shared memory. Up to this many bytes a block, two
+# blocks fit an SM's 227 KB; a mesh past it takes the direct-gather kernel
+PREDICT_SMEM_MAX_BYTES = 112 * 1024
 
 
 def zigzag_kernel(v: torch.Tensor) -> torch.Tensor:
@@ -135,34 +139,60 @@ def _cuda_stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def predict_fits_smem(V: int, C: int, itemsize: int) -> bool:
+    """Whether K1 takes its shared-memory kernel for q rows of V * C values
+    of ``itemsize`` bytes: C is 1 to 4 (the kernel's unrolled component
+    counts), and the row and the staging tile (8 warps x 32 steps x C
+    int32) fit ``PREDICT_SMEM_MAX_BYTES``. A row lies skewed, one 32-bit
+    word of padding after every 32, and is rounded up to 16 bytes, as
+    ``csrc/predict_residual.cu`` ``skewed_row`` has it. Otherwise: the
+    direct-gather kernel."""
+    if not 1 <= C <= 4:
+        return False
+    n = V * C
+    per16 = 16 // itemsize
+    row = (n + n // (128 // itemsize) * (4 // itemsize) + per16) \
+        // per16 * per16 * itemsize
+    return row + 8 * 32 * C * 4 <= PREDICT_SMEM_MAX_BYTES
+
+
+def _check_predict_inputs(q, gathers, vmin, vmax) -> None:
+    """Raise on what K1 does not take. The messages are built only on a
+    failure: the launch path runs in tens of microseconds."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _require(q.dim() == 3 and q.is_contiguous(), "q must be (B, V, C) "
+             "contiguous")
+    if q.dtype not in (torch.uint16, torch.int32):
+        raise ValueError(f"q must be uint16 or int32, got {q.dtype}")
+    B = q.shape[0]
+    T = gathers["order"].numel()
+    for keys, dtype in ((_GATHER_INDEX, torch.int32),
+                        (_GATHER_MASK, torch.bool)):
+        for k in keys:
+            g = gathers[k]
+            if not (g.device == dev and g.dtype == dtype
+                    and g.is_contiguous() and g.numel() == T):
+                raise ValueError(f"gather {k!r} must be ({T},) {dtype} on "
+                                 f"{dev}")
+    for name, r in (("vmin", vmin), ("vmax", vmax)):
+        if not (r.device == dev and r.dtype == torch.int32
+                and r.is_contiguous() and r.shape == (B,)):
+            raise ValueError(f"{name} must be ({B},) int32 on {dev}")
+
+
 def predict_residual(q: torch.Tensor, gathers: dict, vmin: torch.Tensor,
                      vmax: torch.Tensor) -> torch.Tensor:
     """K1: (B, T, C) int32 zigzagged residual symbols of host-quantized
     q (B, V, C) uint16 or int32, against the host's per-mesh range
-    vmin/vmax (B,) int32. Gather indices must lie in [0, V)."""
+    vmin/vmax (B,) int32. Gather indices must lie in [0, V). On CUDA the
+    kernel is chosen from the shape alone (``predict_fits_smem``)."""
     if q.device.type == "cpu":
         return predict_residual_ref(q, gathers, vmin, vmax)
-    _require(q.device.type == "cuda", f"unsupported device {q.device}")
-    _require(q.dim() == 3 and q.is_contiguous(), "q must be (B, V, C) "
-             "contiguous")
-    _require(q.dtype in (torch.uint16, torch.int32),
-             f"q must be uint16 or int32, got {q.dtype}")
+    _check_predict_inputs(q, gathers, vmin, vmax)
     B, V, C = q.shape
-    T = int(gathers["order"].numel())
-    for k in _GATHER_INDEX:
-        g = gathers[k]
-        _require(g.device == q.device and g.dtype == torch.int32
-                 and g.is_contiguous() and g.numel() == T,
-                 f"gather {k!r} must be ({T},) int32 on {q.device}")
-    for k in _GATHER_MASK:
-        g = gathers[k]
-        _require(g.device == q.device and g.dtype == torch.bool
-                 and g.is_contiguous() and g.numel() == T,
-                 f"mask {k!r} must be ({T},) bool on {q.device}")
-    for name, r in (("vmin", vmin), ("vmax", vmax)):
-        _require(r.device == q.device and r.dtype == torch.int32
-                 and r.is_contiguous() and r.shape == (B,),
-                 f"{name} must be ({B},) int32 on {q.device}")
+    T = gathers["order"].numel()
     out = torch.empty((B, T, C), dtype=torch.int32, device=q.device)
     if B * T * C == 0:
         return out
@@ -172,7 +202,7 @@ def predict_residual(q: torch.Tensor, gathers: dict, vmin: torch.Tensor,
     rc = fn(q.data_ptr(), *(gathers[k].data_ptr() for k in _GATHER_INDEX),
             *(gathers[k].data_ptr() for k in _GATHER_MASK),
             vmin.data_ptr(), vmax.data_ptr(), out.data_ptr(), B, V, T, C,
-            _cuda_stream(q))
+            int(predict_fits_smem(V, C, q.element_size())), _cuda_stream(q))
     _build.check(rc, "predict_residual")
     predict_residual.n_launches += 1
     return out

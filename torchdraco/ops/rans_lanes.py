@@ -136,11 +136,11 @@ def flip_lanes(symbols: torch.Tensor) -> torch.Tensor:
 
 
 def lane_tables_gather(lanes: torch.Tensor, dist: torch.Tensor,
-                       cums: torch.Tensor):
-    """Per-symbol (freq, cum) from each lane's own table row, int64."""
+                       cums: torch.Tensor, dtype=torch.int64):
+    """Per-symbol (freq, cum) from each lane's own table row, in ``dtype``
+    (int64 for the twins' arithmetic)."""
     idx = torch.clamp(lanes.to(torch.int64), 0, dist.shape[1] - 1)
-    return (dist.to(torch.int64).gather(1, idx),
-            cums.to(torch.int64).gather(1, idx))
+    return dist.to(dtype).gather(1, idx), cums.to(dtype).gather(1, idx)
 
 
 def words_cap(n: int) -> int:
@@ -372,7 +372,12 @@ def _check_precision(precision: int) -> None:
              f"precision must be in 1..{MAX_PRECISION}, got {precision}")
 
 
-def rans_scan_dense_ref(fs, cs, lengths, precision: int):
+# K4's reciprocal division holds for frequencies in (0, 2^21); any other
+# sends the step to the kernel's exact path (``csrc/rans_dense.cu``)
+DENSE_FAST_MAX_FREQ = 1 << 21
+
+
+def rans_scan_dense_ref(fs, cs, lengths, precision: int, guard_steps=None):
     """Plain version of K4 (``rans_scan_pallas``), the lax.scan branch of
     ``_rans_scan_lanes``. fs/cs (L, T) integer tensors of uint32 values,
     each lane's pre-gathered (freq, cum) per symbol; lengths (L,): lane l
@@ -381,7 +386,12 @@ def rans_scan_dense_ref(fs, cs, lengths, precision: int):
     int32 holding uint32 bits): slot ``t * 3 + r`` is the r-th
     renormalisation byte of step t, 0 and False where there is none. A
     frequency of 0 divides as jnp does for uint32: quotient 0xFFFFFFFF,
-    remainder 0."""
+    remainder 0.
+
+    ``guard_steps``, an (L,) int32 tensor where given, receives each
+    lane's count of steps that K4 cannot take on its reciprocal: a
+    frequency of 0 or at least 2^21, or a renormalised state that is not
+    below ``freq << 10``. Valid streams have none."""
     _check_precision(precision)
     L, T = fs.shape
     dev = fs.device
@@ -394,6 +404,7 @@ def rans_scan_dense_ref(fs, cs, lengths, precision: int):
                           device=dev)
     is_byte = torch.zeros((L, T, MAX_RENORM_PER_SYMBOL), dtype=torch.bool,
                           device=dev)
+    guarded = torch.zeros(L, dtype=torch.int64, device=dev)
     for t in range(T):
         active = ln > t
         f = f_all[:, t]
@@ -405,48 +416,64 @@ def rans_scan_dense_ref(fs, cs, lengths, precision: int):
             is_byte[:, t, r] = do
             state = torch.where(do, state >> 8, state)
         zero = f == 0
+        guarded += active & (zero | (f >= DENSE_FAST_MAX_FREQ)
+                             | (state >= limit))
         safe = torch.where(zero, 1, f)
         q = torch.where(zero, _U32, state // safe)
         m = torch.where(zero, 0, state % safe)
         state = torch.where(active, ((q << p) + m + c_all[:, t]) & _U32,
                             state)
+    if guard_steps is not None:
+        guard_steps.copy_(guarded)
     return (emitted.reshape(L, -1), is_byte.reshape(L, -1),
             _u32_bits(state))
 
 
-def rans_scan_dense(fs, cs, lengths, precision: int):
+def rans_scan_dense(fs, cs, lengths, precision: int, guard_steps=None):
     """K4: see ``rans_scan_dense_ref`` for the contract, which the kernel
-    meets bit for bit. On CUDA the kernel reads fs/cs as (T, L) and writes
-    (3T, L), transposed back here, so a warp's lanes touch neighbouring
-    addresses."""
+    meets bit for bit. On CUDA one block codes one lane: it reads the
+    lane's fs/cs rows as they lie (int32 or int64 elements) and writes
+    every byte and mask slot of the lane's rows in their final layout and
+    type, so nothing is transposed, zeroed or cast around the launch."""
     if fs.device.type == "cpu":
-        return rans_scan_dense_ref(fs, cs, lengths, precision)
+        return rans_scan_dense_ref(fs, cs, lengths, precision, guard_steps)
     dev = fs.device
     _require(dev.type == "cuda", f"unsupported device {dev}")
     _check_precision(precision)
-    _require(fs.dim() == 2 and cs.shape == fs.shape and cs.device == dev,
-             "fs/cs must be (L, T) on one device")
+    _require(fs.dim() == 2 and cs.shape == fs.shape and cs.device == dev
+             and cs.dtype == fs.dtype
+             and fs.dtype in (torch.int32, torch.int64),
+             "fs/cs must be (L, T) int32 or int64 of one dtype on one "
+             "device")
     L, T = fs.shape
     _require(tuple(lengths.shape) == (L,) and lengths.device == dev,
              f"lengths must be ({L},) on {dev}")
-    f_t = fs.to(torch.int32).t().contiguous()
-    c_t = cs.to(torch.int32).t().contiguous()
+    _require(guard_steps is None or (
+        guard_steps.device == dev and guard_steps.dtype == torch.int32
+        and tuple(guard_steps.shape) == (L,)
+        and guard_steps.is_contiguous()),
+        f"guard_steps must be ({L},) contiguous int32 on {dev}")
+    fs, cs = fs.contiguous(), cs.contiguous()
     ln = lengths.to(torch.int32).contiguous()
-    bytes_t = torch.zeros((MAX_RENORM_PER_SYMBOL * T, L), dtype=torch.uint8,
-                          device=dev)
-    mask_t = torch.zeros_like(bytes_t)
-    states = torch.full((L,), 4 << int(precision), dtype=torch.int32,
-                        device=dev)
+    width = MAX_RENORM_PER_SYMBOL * T
+    emitted = torch.empty((L, width), dtype=torch.uint8, device=dev)
+    is_byte = torch.empty((L, width), dtype=torch.bool, device=dev)
+    states = torch.empty((L,), dtype=torch.int32, device=dev)
     if L and T:
         lib = _build.load()
-        rc = lib.tdr_rans_dense(f_t.data_ptr(), c_t.data_ptr(),
-                                ln.data_ptr(), L, T, int(precision),
-                                bytes_t.data_ptr(), mask_t.data_ptr(),
-                                states.data_ptr(), _cuda_stream(fs))
+        rc = lib.tdr_rans_dense(
+            fs.data_ptr(), cs.data_ptr(), int(fs.dtype == torch.int64),
+            ln.data_ptr(), L, T, int(precision), emitted.data_ptr(),
+            is_byte.data_ptr(), states.data_ptr(),
+            guard_steps.data_ptr() if guard_steps is not None else None,
+            _cuda_stream(fs))
         _build.check(rc, "rans_scan_dense")
         rans_scan_dense.n_launches += 1
-    return (bytes_t.t().contiguous(), mask_t.t().contiguous().to(torch.bool),
-            states)
+    else:  # no step runs: every lane keeps its initial state
+        states.fill_(4 << int(precision))
+        if guard_steps is not None:
+            guard_steps.zero_()
+    return emitted, is_byte, states
 
 
 rans_scan_dense.n_launches = 0
@@ -463,7 +490,8 @@ def rans_scan_lanes_dense(symbols, freqs, cums, lengths, precision: int):
     dev = symbols.device
     if freqs.dim() == 1:  # one table for every lane
         freqs, cums = freqs.expand(L, -1), cums.expand(L, -1)
-    fs, cs = lane_tables_gather(symbols, freqs, cums)
+    # int32 holds a normalized table's values, and K4 reads half the bytes
+    fs, cs = lane_tables_gather(symbols, freqs, cums, dtype=torch.int32)
     emitted, is_byte, states = rans_scan_dense(fs, cs, lengths, precision)
     st = ((states.to(torch.int64) & _U32) - (4 << int(precision))) & _U32
     nflush = torch.where(st < (1 << 6), 1, torch.where(
@@ -552,8 +580,9 @@ def rans_encode_lanes(symbols, freqs, cums, lengths, precision: int = 12,
 def encode_streams_device(symbol_streams, freq_counts, precision: int = 12,
                           device=None) -> list[bytes]:
     """Pad streams into lanes on one shared table, run the lane coder on
-    ``device`` and slice each lane's bytes: bit-exact with the host
-    ``RansEncoder`` over ``normalize_freq_counts(freq_counts, precision)``."""
+    ``device`` (None: the card; ``"cpu"`` runs the plain twin) and slice
+    each lane's bytes: bit-exact with the host ``RansEncoder`` over
+    ``normalize_freq_counts(freq_counts, precision)``."""
     dist = normalize_freq_counts(freq_counts, precision)
     cums = np.concatenate(([0], np.cumsum(dist)[:-1]))
     L = len(symbol_streams)
@@ -571,7 +600,8 @@ def encode_streams_device(symbol_streams, freq_counts, precision: int = 12,
 
 def encode_direct_coded_streams_device(streams, device=None) -> list[bytes]:
     """Full DirectCoded payloads for independent streams with the rANS
-    inner loop on ``device``, bit-exact with the host
+    inner loop on ``device`` (None: the card; ``"cpu"`` runs the plain
+    twin), bit-exact with the host
     ``encode_symbols(s, n, DIRECT_CODED, w)``. Each stream gets its own
     table; lanes are bucketed by precision (a function of each stream's
     nonzero count), each bucket is one lane-coder call with per-lane

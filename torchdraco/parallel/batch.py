@@ -156,8 +156,8 @@ def topology_gathers_np(topo: PreparedTopology, pos_att) -> dict:
 
 
 def gathers_to_torch(g_np: dict, device) -> dict:
-    """The ``topology_gathers_np`` dict as tensors on ``device``: int32
-    indices, bool masks."""
+    """The ``topology_gathers_np`` dict as tensors on ``device`` (None:
+    the card): int32 indices, bool masks."""
     dev = resolve(device)
     out = {}
     for k, v in g_np.items():
@@ -217,7 +217,8 @@ def device_encode_group(positions_batch: np.ndarray, topo: PreparedTopology,
                         pos_att, bits: int = 11, device=None) -> dict:
     """The fused step for a (B, V, C) float32 batch sharing ``topo``:
     quantize on the host (C++, the canonical formula), upload uint16
-    (int32 past 16 bits), run K1 and K2 on ``device``. Returns symbols and
+    (int32 past 16 bits), run K1 and K2 on ``device`` (None: the card;
+    ``"cpu"`` runs their plain twins). Returns symbols and
     counts on the device, plus vmin/vmax, mins, delta_max and the quantized
     values on the host."""
     dev = resolve(device)
@@ -260,8 +261,9 @@ class BatchEncoder:
                              entropy: str = "device",
                              device=None) -> list[bytes]:
         """Per topology group, the fused step and the rANS coder run on
-        ``device`` in chunks of DEVICE_CHUNK meshes; the host assembles
-        the bytes. Output equals sequential encode(). Errors raise; there
+        ``device`` (None: the card; ``"cpu"`` runs the kernels' plain
+        twins) in chunks of DEVICE_CHUNK meshes; the host assembles the
+        bytes. Output equals sequential encode(). Errors raise; there
         is no host fallback. Only the position attribute is ported: a mesh
         with any other attribute raises NotImplementedError."""
         if entropy != "device":

@@ -114,8 +114,9 @@ class BatchDecoder:
         take the host decoder. Meshes equal per-blob ``decode()``.
 
         ``entropy="device"`` decodes every attribute symbol stream of the
-        group as rANS lanes on ``device`` (None: the CPU, where the lanes
-        take D1's plain twin). NORMAL chains decode per blob on the host."""
+        group as rANS lanes on ``device`` (None: the card; ``"cpu"``, where
+        the lanes take D1's plain twin, is had by asking). NORMAL chains
+        decode per blob on the host."""
         if entropy not in ("host", "device"):
             raise ValueError(f"entropy must be 'host' or 'device', got "
                              f"{entropy!r}")
