@@ -8,7 +8,14 @@ the stages (eight meshes also through the entry points without a
 plane at the same width: the lane coder
 through both engines (K3 words, K4 dense) and the lane decoder (D1) over
 the fused step's symbols, and BatchDecoder(entropy="device") over the 512
-blobs, checked against the port's own host decoder. That the port's host
+blobs, checked against the port's own host decoder. Then the default
+attribute set at the same width (phases 8-11): the card's float32 division,
+product-then-sum and square root against numpy bit for bit; the NORMAL and
+TEX_COORD chains (torch operations, no kernel of their own) on the card
+against the same functions on the CPU; encode_meshes_device over 512 meshes
+with positions, normals and UVs against the host plane; and the phased
+decode (normals="device") over those blobs against decode(), in turns with
+normals="host". That the port's host
 codec equals tpudraco's is what the CPU tests show
 (tests/test_torch_host_codec.py); this script imports nothing of it.
 
@@ -20,7 +27,9 @@ it lists every kernel with its launches on its path, its error against
 its twin, both times, its bound (bytes moved once over 3.35 TB/s, or
 integer operations over 67 Tops/s, whichever is larger) and, for the
 histogram, the time of the one PyTorch call that computes the same
-function. K1's and K2's times are medians of BATCHES batches of 50
+function; the line before that (``chains``) holds the three chains'
+device times, launches, peak memory and bounds and the end-to-end times of
+phases 10-11. K1's and K2's times are medians of BATCHES batches of 50
 launches; K4's twin runs once, over the path's 512 lanes and 512 lanes of
 random (freq, cum) pairs together, which take the kernel's exact path.
 The full report (ptxas resources, every timing run, the device trace
@@ -42,6 +51,9 @@ BATCHES = 7  # timing batches of the kernels that take tens of microseconds
 # tensor cores, which stands in for the int32 rate of these integer kernels
 HBM_BYTES_S, ALU_OPS_S = 3.35e12, 67e12
 # integer operations a kernel does per element, counted from its source
+NORMAL_BITS, UV_BITS = 8, 10     # the default -qn and -qt
+DEEP_BATCH, DEEP_QP, DEEP_QN, DEEP_QT = 32, 18, 16, 16
+FLOAT_CASES = 1 << 22
 OPS = {"predict_residual": 12, "histogram": 2, "rans_words_scan": 30,
        "rans_scan_dense": 30, "rans_decode_lanes": 30}
 
@@ -122,10 +134,9 @@ def main() -> int:
         operations and readbacks around the launch are left out."""
         fn()
         sync()
-        us = []
-        for _ in range(3):  # a trace may miss launches, at times all
+        for attempt in range(5):  # a trace may miss launches, at times all
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
+                for _ in range(reps * (attempt + 1)):
                     fn()
                 sync()
             us = [e.time_range.end - e.time_range.start
@@ -133,9 +144,11 @@ def main() -> int:
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and name in e.name]
             if us:
-                break
-        _check(len(us) > 0, f"three traces hold no kernel named *{name}*")
-        return sum(us) / 1e3 / len(us)
+                return sum(us) / 1e3 / len(us)
+        # the tracer lost this kernel five times over: the wrapper's time
+        # by CUDA events stands in (an upper bound), and the report says so
+        report.setdefault("kernel_only_ms_from_events", []).append(name)
+        return cuda_ms(fn, reps)
 
     def nbytes(*tensors) -> int:
         return sum(t.numel() * t.element_size() for t in tensors)
@@ -767,6 +780,348 @@ def main() -> int:
           f"(per-blob decode() {host_ref_s:.3f} s); stages "
           f"{ {a: round(b, 4) for a, b in bd.timings.items()} }")
 
+    # ---- phase 8: the card's float32 arithmetic against numpy, bitwise ----
+    from torchdraco.ops import normals as tnorm
+    from torchdraco.ops import texcoords as ttex
+
+    rng8 = np.random.default_rng(SEED + 8)
+
+    def spread(n, lo, hi):
+        return rng8.standard_normal(n) * 2.0 ** rng8.integers(lo, hi, n)
+    half_k = rng8.integers(0, 1 << 15, 1 << 16) + 0.5  # k + .5 over scales
+    half_s = rng8.choice([63.0, 127.0, 2047.0, 16383.0, 32767.0], 1 << 16)
+    ints_a = rng8.integers(-(1 << 29), 1 << 29, 1 << 18)   # ring totals
+    ints_b = rng8.integers(1, 1 << 30, 1 << 18)
+    pw = 2.0 ** rng8.integers(-60, 61, 1 << 12)
+    fa = np.concatenate([spread(FLOAT_CASES, -30, 31), half_k, half_k,
+                         spread(1 << 14, -126, -110), ints_a, pw,
+                         [0.0, -0.0, 1.0, 3.0, 2.0 ** -149]])
+    fb = np.concatenate([spread(FLOAT_CASES, -30, 31), half_s, 1.0 / half_s,
+                         spread(1 << 14, 10, 20), ints_b, pw[::-1],
+                         [5.0, 7.0, 3.0, 1.0, 3.0]])
+    fa, fb = fa.astype(np.float32), fb.astype(np.float32)
+    fb[fb == 0] = np.float32(1.0)
+    fc = np.roll(fa, 7)
+    ta, tb, tc = (torch.from_numpy(x).to(dev) for x in (fa, fb, fc))
+
+    def bits_differ(got, want) -> int:
+        got = got.cpu().numpy()
+        _check(got.dtype == np.float32 and want.dtype == np.float32
+               and not np.isnan(want).any(), "float phase operands")
+        return int((got.view(np.int32) != want.view(np.int32)).sum())
+    with np.errstate(all="ignore"):
+        n_sub = int(((np.abs(fa / fb) < 2.0 ** -126) & (fa != 0)).sum())
+        float_errs = {
+            "div": bits_differ(ta / tb, fa / fb),
+            "mul": bits_differ(ta * tb, fa * fb),
+            "mul_then_add": bits_differ((ta * tb) + tc, (fa * fb) + fc),
+            "sqrt": bits_differ(torch.sqrt(ta.abs()), np.sqrt(np.abs(fa))),
+            "chain_div": bits_differ(tnorm._f32_div(ta, tb), fa / fb),
+            "chain_sqrt": bits_differ(tnorm._f32_sqrt(ta.abs()),
+                                      np.sqrt(np.abs(fa)))}
+    report["phase8"] = {"values": int(fa.size), "subnormal_quotients": n_sub,
+                        "bit_mismatches": float_errs}
+    _check(fa.size >= FLOAT_CASES and n_sub > 1000
+           and all(v == 0 for v in float_errs.values()),
+           f"the card's float32 arithmetic differs from numpy: {float_errs}")
+    del ta, tb, tc
+    print(f"phase 8: float32 /, * then +, and sqrt on the card equal numpy "
+          f"bit for bit on {fa.size} values ({n_sub} subnormal quotients, "
+          f"{half_k.size * 2} quotients and products of k + .5 by the chains' "
+          f"scales, "
+          f"powers of two, integers to 2^29): mismatches {float_errs}")
+
+    # ---- phase 9: each chain on the card against the same chain on the CPU
+    normals3, uvs3 = torchdraco.make_normal_uv_batch(positions, GRID,
+                                                     SEED + 2)
+    meshes3 = torchdraco.build_meshes(positions, faces, normals3, uvs3)
+    topo3 = tbatch.PreparedTopology(meshes3[0])
+    m3 = meshes3[0]
+    n_pts = m3.position_attribute().num_points
+    uo_pos_np = m3.position_attribute().unique_indices().astype(np.int64)
+    uo_nrm_np = m3.attributes[1].unique_indices().astype(np.int64)
+    uo_uv_np = m3.attributes[2].unique_indices().astype(np.int64)
+    rings_np = topo3.rings_for(1)
+    uvg_np = topo3.uv_gathers_for(2, n_pts)
+    ring_keys = ("tip_pt", "next_pt", "prev_pt", "mask")
+    T3, R3 = rings_np["next_pt"].shape
+
+    def chain_inputs(q_pos_np, nrm_np, q_uv_np, where):
+        """The three chains' arguments as tensors on ``where``."""
+        def up(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(where)
+        rings = tnorm.rings_to_torch(rings_np, where)
+        rows = tnorm.rings_to_torch(rings_np, where, rows=uo_pos_np)
+        return {"q_pos": up(q_pos_np), "nrm": up(nrm_np), "q_uv": up(q_uv_np),
+                "uo_pos": up(uo_pos_np), "uo_nrm": up(uo_nrm_np),
+                "uo_uv": up(uo_uv_np),
+                "rings": [rings[k] for k in ring_keys],
+                "rows": [rows[k] for k in ring_keys],
+                "uvg": ttex.uv_gathers_to_torch(uvg_np, where)}
+
+    def run_chains(a, qn, where):
+        """(normal symbols, flips, decoded normals, the UV chain's six)."""
+        sym, flips = tnorm.normal_encode_chain(
+            a["q_pos"], a["nrm"], *a["rings"], a["uo_pos"], a["uo_nrm"],
+            bits=qn)
+        back = tnorm.normal_decode_chain(a["q_pos"], sym, flips, *a["rows"],
+                                         bits=qn)
+        uv = ttex.uv_encode_chain(a["q_pos"], a["q_uv"], a["uvg"],
+                                  a["uo_pos"], a["uo_uv"], device=where)
+        return sym, flips, back, uv
+
+    def chains_equal(got, want, what):
+        for name, g, w in zip(("normal symbols", "normal flips",
+                               "decoded normals"), got[:3], want[:3]):
+            _check(g.dtype == w.dtype and torch.equal(g.cpu(), w),
+                   f"{name} on the card differ from the CPU's ({what})")
+        for name, g, w in zip(("symbols", "vmin", "vmax", "orient_vals",
+                               "orient_flags", "risky"), got[3], want[3]):
+            _check(g.dtype == w.dtype and np.array_equal(g, w),
+                   f"UV {name} on the card differ from the CPU's ({what})")
+
+    q_uv_full = tbatch._host_quantize(uvs3, UV_BITS)[0]
+    full_dev = chain_inputs(q_up, normals3, q_uv_full, dev)
+    got_full = run_chains(full_dev, NORMAL_BITS, dev)
+    sync()
+    want_full, cpu_chains_s = wall_s(lambda: run_chains(
+        chain_inputs(q_up, normals3, q_uv_full, "cpu"), NORMAL_BITS, "cpu"))
+    chains_equal(got_full, want_full, "full shape")
+    # the decode chain gives the quantized normals back, but for the
+    # corner (max, max), which the transform folds onto the corners near 0
+    q_n = tnorm.oct_quantize_faithful_device(full_dev["nrm"], NORMAL_BITS)
+    orig_n = q_n[:, full_dev["uo_nrm"][full_dev["rings"][0]], :]
+    folded = (orig_n == (1 << NORMAL_BITS) - 1).all(-1)
+    back_err = ((got_full[2] != orig_n).any(-1) & ~folded)
+    _check(not back_err.any().item() and folded.sum().item() < 64,
+           "decode chain does not invert encode")
+    _check(not got_full[3][5].any(), "a UV row of the slice is risky")
+    # deep depths on a smaller batch: ring sums past 2^31, 16-bit normals
+    deep_pos = (positions[:DEEP_BATCH] * np.float32(1e4)).astype(np.float32)
+    q_deep = tbatch.quantize_positions_host(deep_pos, DEEP_QP)[0]
+    q_uv_deep = tbatch._host_quantize(uvs3[:DEEP_BATCH], DEEP_QT)[0]
+    _check(int(np.abs(np.diff(q_deep.astype(np.int64), axis=1)).max()) ** 2
+           > 1 << 31, "the deep case does not pass int32")
+    deep_args = (q_deep, normals3[:DEEP_BATCH], q_uv_deep)
+    got_deep = run_chains(chain_inputs(*deep_args, dev), DEEP_QN, dev)
+    want_deep = run_chains(chain_inputs(*deep_args, "cpu"), DEEP_QN, "cpu")
+    chains_equal(got_deep, want_deep, f"-qp {DEEP_QP} -qn {DEEP_QN}")
+    deep_risky = int(got_deep[3][5].sum())
+    del want_full, want_deep, got_deep
+
+    def traced(fn) -> dict:
+        """One call of ``fn`` under a device trace: device events (kernel
+        launches and copies), their busy time, and the peak of allocated
+        device memory above what was held before."""
+        fn()
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, wall = wall_s(fn)
+        peak = torch.cuda.max_memory_allocated() - base
+        spans = [(e.time_range.start, e.time_range.end, e.name)
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy, edge = 0.0, float("-inf")
+        for a0, b0, _ in sorted(spans):
+            if b0 > edge:
+                busy += b0 - max(a0, edge)
+                edge = b0
+        copies = sum(1 for _, _, name in spans
+                     if "memcpy" in name.lower() or "memset" in name.lower())
+        return {"wall_ms": wall * 1e3, "busy_ms": busy / 1e3,
+                "launches": len(spans) - copies, "copies": copies,
+                "peak_bytes": int(peak),
+                "idle_share": (1 - busy / 1e3 / (wall * 1e3)) if spans
+                else None}
+
+    a = full_dev
+    sym_n, flips_n = got_full[0], got_full[1]
+    uv_i64 = [a["q_pos"].to(torch.int64), a["q_uv"].to(torch.int64)]
+    chain_fns = {
+        "normal_encode_chain": lambda: tnorm.normal_encode_chain(
+            a["q_pos"], a["nrm"], *a["rings"], a["uo_pos"], a["uo_nrm"],
+            bits=NORMAL_BITS),
+        "normal_decode_chain": lambda: tnorm.normal_decode_chain(
+            a["q_pos"], sym_n, flips_n, *a["rows"], bits=NORMAL_BITS),
+        "uv_encode_chain": lambda: ttex._uv_chain_impl(
+            *uv_i64, a["uo_pos"], a["uo_uv"],
+            *(a["uvg"][k] for k in ttex._UV_INDEX_KEYS
+              + ttex._UV_MASK_KEYS))}
+    ring_bytes = nbytes(*a["rings"])
+    uv_sym_bytes = 4 * BATCH * T3 * 2   # the wire's uint32
+    moved = {
+        "normal_encode_chain": nbytes(a["q_pos"], a["nrm"], a["uo_pos"],
+                                      a["uo_nrm"], sym_n, flips_n)
+        + ring_bytes,
+        "normal_decode_chain": nbytes(a["q_pos"], sym_n, flips_n,
+                                      got_full[2]) + ring_bytes,
+        "uv_encode_chain": nbytes(a["q_pos"], a["q_uv"], a["uo_pos"],
+                                  a["uo_uv"], *a["uvg"].values())
+        + uv_sym_bytes + BATCH * (4 + 4 + 2 * T3 + 1)}
+    # integer and float operations a step, counted from the sources: 45 a
+    # ring slot (two edges, the cross product, the masked sum) and 250 for
+    # the rest of a normal step; the UV step's 96 square-root rounds of 8
+    chain_ops = {"normal_encode_chain": BATCH * T3 * (45 * R3 + 250),
+                 "normal_decode_chain": BATCH * T3 * (45 * R3 + 250),
+                 "uv_encode_chain": BATCH * T3 * (96 * 8 + 250)}
+    chains = {"card": smi_line,
+              "shape": {"meshes": BATCH, "steps": T3, "ring": R3,
+                        "bits": [BITS, NORMAL_BITS, UV_BITS]}}
+    for name, fn in chain_fns.items():
+        chains[name] = {"ms": cuda_ms(fn, 3), **traced(fn),
+                        **bound(moved[name], chain_ops[name])}
+        del chains[name]["idle_share"]
+    chains["cpu_all_three_s"] = cpu_chains_s
+    report["phase9"] = {"deep_risky_meshes": deep_risky}
+    print(f"phase 9: normal_encode_chain, normal_decode_chain and "
+          f"uv_encode_chain on the card equal the same functions on the CPU "
+          f"at ({BATCH}, {T3}, ring {R3}) -qp {BITS} -qn {NORMAL_BITS} -qt "
+          f"{UV_BITS} (the CPU's three took {cpu_chains_s:.1f} s) and at "
+          f"-qp {DEEP_QP} -qn {DEEP_QN} -qt {DEEP_QT} on {DEEP_BATCH} meshes "
+          f"({deep_risky} risky there); the decode chain gives the "
+          f"quantized normals back; device ms / launches / peak MB / bound "
+          f"ms "
+          f"{ {n: (round(c['ms'], 3), c['launches'], round(c['peak_bytes'] / 1e6), round(c['bound_ms'], 4)) for n, c in chains.items() if isinstance(c, dict) and 'ms' in c} }")
+    del full_dev, got_full, a, sym_n, flips_n, uv_i64, chain_fns, q_n, back_err, orig_n
+    torch.cuda.empty_cache()
+
+    # ---- phase 10: encode_meshes_device, positions + normals + UVs -------
+    mb_in3 = (positions.nbytes + normals3.nbytes + uvs3.nbytes) / 1e6
+    enc3 = tbatch.BatchEncoder()
+    reset_launch_counts()
+    blobs3, enc3_first_s = wall_s(lambda: enc3.encode_meshes_device(meshes3))
+    launches10 = {fn.__name__: fn.n_launches for fn in
+                  (tdev.predict_residual, tdev.histogram, trl.rans_words_scan)}
+    report["launches_phase10"] = launches10
+    _check(all(n == 1 for n in launches10.values()),
+           f"one chunk of {BATCH} meshes launches K1, K2 and K3 once each: "
+           f"{launches10}")
+    _check(enc3.n_host_attributes == 0,
+           f"{enc3.n_host_attributes} attributes went to the host encoder")
+    host_blobs3, host3_s = wall_s(lambda: [
+        tbatch.encode_with_topology(m, topo3) for m in meshes3])
+    bad = [i for i, (x, y) in enumerate(zip(blobs3, host_blobs3)) if x != y]
+    _check(len(blobs3) == BATCH and not bad, f"{len(bad)} pos+normal+UV "
+           f"blobs differ from the host plane (first {bad[:5]})")
+    bad = [i for i in sample if blobs3[i] != encode(meshes3[i])]
+    _check(not bad, f"pos+normal+UV blobs differ from encode(): {bad[:5]}")
+    dev_runs10, host_runs10, stages10 = [], [host3_s], []
+    for turn in range(2):  # in turns: device, host, device
+        dev_runs10.append(wall_s(lambda: enc3.encode_meshes_device(
+            meshes3))[1])
+        stages10.append(dict(enc3.timings))
+        if turn == 0:
+            host_runs10.append(wall_s(lambda: [
+                tbatch.encode_with_topology(m, topo3) for m in meshes3])[1])
+    trace10 = traced(lambda: enc3.encode_meshes_device(meshes3))
+    # the host's share of the attribute stages: the payloads of the chains'
+    # symbols, which the device path also codes on the host
+    extra3 = tbatch._device_extra_attribute_entries(
+        meshes3, list(range(BATCH)), topo3, bits=BITS)
+    _check(all(set(extra3.get(k, {})) == {1, 2} for k in range(BATCH)),
+           "a chain entry is missing")
+    sym_probe = np.random.default_rng(SEED).integers(
+        0, 255, size=(64, T3, 2))
+    _, payload_s = wall_s(lambda: [tbatch._direct_coded_payload(x)
+                                   for x in sym_probe])
+    # and the transform metadata: a mesh's flip bits (none set on this
+    # data) and its orientation bits (about half set), 64 meshes of each
+    from torchdraco.shared.prediction import (write_normal_flips,
+                                              write_tex_orientations)
+    from torchdraco.wire.byte_io import ByteWriter
+    bit_probe = (np.random.default_rng(SEED).random((64, T3)) < 0.5).tolist()
+    _, meta_s = wall_s(lambda: [
+        (write_normal_flips([False] * T3, ByteWriter()),
+         write_tex_orientations(row, ByteWriter())) for row in bit_probe])
+    chains["encode"] = {
+        "mb_in": mb_in3, "bytes_out": sum(len(b) for b in blobs3),
+        "device_s": dev_runs10, "first_call_s": enc3_first_s,
+        "host_plane_s": host_runs10, "stages_s": stages10,
+        "payload_s_per_1024_streams": payload_s * 16,
+        "metadata_s_per_512_meshes": meta_s * 8,
+        "trace": trace10, "n_host_attributes": enc3.n_host_attributes,
+        "launches": launches10}
+    print(f"phase 10: {BATCH} meshes with positions, normals and UVs "
+          f"({mb_in3:.1f} MB f32) -> {chains['encode']['bytes_out']} B of "
+          f".drc without a device argument; all equal the host plane, "
+          f"{len(sample)} sampled equal encode(); 0 host attributes; "
+          f"launches {launches10}; device path "
+          f"{[round(x, 3) for x in dev_runs10]} s (first call "
+          f"{enc3_first_s:.3f}) vs host plane "
+          f"{[round(x, 3) for x in host_runs10]} s; stages "
+          f"{ {k: round(v, 4) for k, v in stages10[-1].items()} }; the "
+          f"1024 host payloads about {payload_s * 16:.3f} s and the flip "
+          f"and orientation bits about {meta_s * 8:.3f} s of chains_s; "
+          f"traced run {trace10['wall_ms']:.1f} ms, device busy "
+          f"{trace10['busy_ms']:.2f} ms over {trace10['launches']} launches "
+          f"and {trace10['copies']} copies, idle share "
+          f"{trace10['idle_share']}")
+
+    # ---- phase 11: the phased decode over phase 10's blobs ---------------
+    def same_mesh(g, r) -> bool:
+        return (g is not None and np.array_equal(g.faces, r.faces)
+                and len(g.attributes) == len(r.attributes)
+                and all(np.array_equal(np.asarray(x.values),
+                                       np.asarray(y.values))
+                        for x, y in zip(g.attributes, r.attributes)))
+    bd3 = tdb.BatchDecoder()
+    reset_launch_counts()
+    dec3, dec3_first_s = wall_s(lambda: bd3.decode_blobs_shared_topology(
+        blobs3, entropy="device", normals="device"))
+    launches11 = {"rans_decode_lanes": trl.rans_decode_lanes.n_launches}
+    _check(launches11["rans_decode_lanes"] > 0 and "normals_s" in bd3.timings,
+           f"the phased decode did not reach the card: {launches11}, "
+           f"{bd3.timings}")
+    _check(bd3.n_host_blobs == 0, f"{bd3.n_host_blobs} blobs went to the host")
+    refs3, decode3_s = wall_s(lambda: [decode(b) for b in blobs3])
+    bad = [i for i, (g, r) in enumerate(zip(dec3, refs3))
+           if not same_mesh(g, r)]
+    _check(not bad, f"{len(bad)} phased-decoded meshes differ from decode() "
+           f"(first {bad[:5]})")
+    runs11 = {"device": [], "host": []}
+    stages11 = []
+    for _ in range(3):  # in turns: normals host, device, host, device, ...
+        for mode in ("host", "device"):
+            out11, s11 = wall_s(lambda: bd3.decode_blobs_shared_topology(
+                blobs3, entropy="device", normals=mode))
+            runs11[mode].append(s11)
+            if mode == "device":
+                stages11.append(dict(bd3.timings))
+    _check(all(same_mesh(g, r) for g, r in zip(out11, refs3)),
+           "a later phased decode differs from decode()")
+    host_ent, host_ent_s = wall_s(lambda: bd3.decode_blobs_shared_topology(
+        blobs3, entropy="host", normals="device"))
+    _check(all(same_mesh(g, r) for g, r in zip(host_ent, refs3))
+           and bd3.n_host_blobs == 0,
+           "entropy='host', normals='device' differs from decode()")
+    trace11 = traced(lambda: bd3.decode_blobs_shared_topology(
+        blobs3, entropy="device", normals="device"))
+    trace7 = traced(lambda: bd.decode_blobs_shared_topology(
+        blobs, entropy="device"))
+    chains["decode"] = {
+        "normals_device_s": runs11["device"], "normals_host_s": runs11["host"],
+        "first_call_s": dec3_first_s, "per_blob_decode_s": decode3_s,
+        "entropy_host_normals_device_s": host_ent_s,
+        "stages_by_device_run_s": stages11, "trace": trace11,
+        "trace_positions_only_group_decode": trace7,
+        "launches": launches11}
+    print(f"phase 11: decode_blobs_shared_topology(entropy='device', "
+          f"normals='device') without a device argument decoded {BATCH} "
+          f"blobs, all equal decode(), 0 host blobs (also with "
+          f"entropy='host': {host_ent_s:.3f} s); normals='device' "
+          f"{[round(x, 3) for x in runs11['device']]} s vs normals='host' "
+          f"{[round(x, 3) for x in runs11['host']]} s in turns (per-blob "
+          f"decode() {decode3_s:.3f} s); stages "
+          f"{ {k: round(v, 4) for k, v in stages11[-1].items()} }; traced "
+          f"run {trace11['wall_ms']:.1f} ms, device busy "
+          f"{trace11['busy_ms']:.2f} ms over {trace11['launches']} launches "
+          f"and {trace11['copies']} copies, idle share "
+          f"{trace11['idle_share']}; the positions-only group decode of "
+          f"phase 7 traced: busy {trace7['busy_ms']:.2f} of "
+          f"{trace7['wall_ms']:.1f} ms, idle share {trace7['idle_share']}")
+
     src = "torchdraco/ops/csrc/"
     table = [
         ("predict_residual", "predict_residual.cu",
@@ -792,8 +1147,9 @@ def main() -> int:
                 "share_of_bound": bounds[name]["bound_ms"] / k[name][0],
                 "kernel_only_ms": alone[name]}
                for name, f, rep, counts in table]
-    print("chip_smoke details: " + json.dumps({**report, "kernels": kernels}),
+    print("chip_smoke details: " + json.dumps({**report, "chains": chains, "kernels": kernels}),
           file=sys.stderr)
+    print(json.dumps({"chains": chains}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

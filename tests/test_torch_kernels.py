@@ -1,4 +1,5 @@
-"""torchdraco's CUDA kernels against their plain PyTorch twins, on the card.
+"""torchdraco's CUDA kernels against their plain PyTorch twins, and its
+NORMAL and TEX_COORD chains against their own run on the CPU, on the card.
 
 Every test here needs an NVIDIA GPU and skips without one; on a machine
 with a card run them with ``python -m pytest -m cuda
@@ -13,7 +14,9 @@ from torchdraco.decode import decode
 from torchdraco.encode import encode
 from torchdraco.entropy.rans import normalize_freq_counts_batch
 from torchdraco.ops import device as tdev
+from torchdraco.ops import normals as tnormals
 from torchdraco.ops import rans_lanes as trl
+from torchdraco.ops import texcoords as ttex
 from torchdraco.parallel import BatchDecoder
 from torchdraco.parallel import batch as tbatch
 
@@ -298,3 +301,89 @@ def test_rans_decode_refuses_unnormalized_table_on_cuda(cuda):
     with pytest.raises(ValueError, match="not a normalized rANS table"):
         trl.rans_decode_lanes(bufs, np.array([4]), dist, np.array([3]))
     assert trl.rans_decode_lanes.n_launches == n0
+
+
+def _chain_group(n, batch, seed, qp, spread=1.0):
+    pos, faces = torchdraco.make_mesh_batch(batch, n, seed)
+    pos = (pos * np.float32(spread)).astype(np.float32)
+    nrm, uvs = torchdraco.make_normal_uv_batch(pos, n, seed + 1)
+    meshes = torchdraco.build_meshes(pos, faces, nrm, uvs)
+    topo = tbatch.PreparedTopology(meshes[0])
+    q_pos = tbatch.quantize_positions_host(pos, qp)[0]
+    return meshes, topo, q_pos, nrm, uvs
+
+
+def test_card_float32_ops_are_correctly_rounded(cuda):
+    """``/``, ``*`` then ``+`` and ``sqrt`` on the card against numpy,
+    bit for bit: what lets the chains use them as they are."""
+    rng = np.random.default_rng(0)
+    a = (rng.standard_normal(1 << 20)
+         * 2.0 ** rng.integers(-30, 31, 1 << 20)).astype(np.float32)
+    b = (rng.standard_normal(1 << 20)
+         * 2.0 ** rng.integers(-30, 31, 1 << 20)).astype(np.float32)
+    b[b == 0] = 1
+    c = np.roll(a, 3)
+    ta, tb, tc = (torch.from_numpy(x).to(cuda) for x in (a, b, c))
+
+    def same(got, want):
+        return np.array_equal(got.cpu().numpy().view(np.int32),
+                              want.view(np.int32))
+    assert same(ta / tb, a / b)
+    assert same((ta * tb) + tc, (a * b) + c)
+    assert same(torch.sqrt(ta.abs()), np.sqrt(np.abs(a)))
+    assert same(tnormals._f32_sqrt(ta.abs()), np.sqrt(np.abs(a)))
+
+
+@pytest.mark.parametrize("qp,qn,spread", ((11, 8, 1.0), (18, 16, 1e4)))
+def test_normal_chains_on_the_card_equal_the_cpu(cuda, qp, qn, spread):
+    meshes, topo, q_pos, nrm, _ = _chain_group(24, 8, qn, qp, spread)
+    m0 = meshes[0]
+    uo_pos = m0.position_attribute().unique_indices().astype(np.int64)
+    uo_nrm = m0.attributes[1].unique_indices().astype(np.int64)
+    keys = ("tip_pt", "next_pt", "prev_pt", "mask")
+    out = {}
+    for where in (cuda, torch.device("cpu")):
+        r = tnormals.rings_to_torch(topo.rings_for(1), where)
+        ri = tnormals.rings_to_torch(topo.rings_for(1), where, rows=uo_pos)
+        q = torch.from_numpy(q_pos).to(where)
+        sym, flips = tnormals.normal_encode_chain(
+            q, torch.from_numpy(nrm).to(where), *(r[k] for k in keys),
+            torch.from_numpy(uo_pos).to(where),
+            torch.from_numpy(uo_nrm).to(where), bits=qn)
+        back = tnormals.normal_decode_chain(q, sym, flips,
+                                            *(ri[k] for k in keys), bits=qn)
+        assert sym.device.type == where.type
+        out[where.type] = [t.cpu() for t in (sym, flips, back)]
+    assert all(torch.equal(a, b) for a, b in zip(out["cuda"], out["cpu"]))
+
+
+@pytest.mark.parametrize("qp,qt,spread", ((11, 10, 1.0), (18, 16, 1e4)))
+def test_uv_chain_on_the_card_equals_the_cpu(cuda, qp, qt, spread):
+    meshes, topo, q_pos, _, uvs = _chain_group(24, 8, qt, qp, spread)
+    m0 = meshes[0]
+    q_uv = tbatch.quantize_positions_host(uvs, qt)[0]
+    g = topo.uv_gathers_for(2, m0.position_attribute().num_points)
+    args = (q_pos, q_uv, g, m0.position_attribute().unique_indices(),
+            m0.attributes[2].unique_indices())
+    got = ttex.uv_encode_chain(*args)  # no device: the card
+    want = ttex.uv_encode_chain(*args, device="cpu")
+    assert all(a.dtype == b.dtype and np.array_equal(a, b)
+               for a, b in zip(got, want))
+
+
+def test_default_attribute_set_round_trip_on_the_card(cuda):
+    """encode_meshes_device and the phased decode, without ``device``,
+    over pos+normal+UV meshes: encode()'s bytes, decode()'s meshes."""
+    meshes, _, _, _, _ = _chain_group(16, 20, 5, 11)
+    enc = tbatch.BatchEncoder()
+    blobs = enc.encode_meshes_device(meshes)
+    assert blobs == [encode(m) for m in meshes]
+    assert enc.n_host_attributes == 0
+    bd = BatchDecoder()
+    out = bd.decode_blobs_shared_topology(blobs, entropy="device",
+                                          normals="device")
+    assert bd.n_host_blobs == 0 and "normals_s" in bd.timings
+    for got, blob in zip(out, blobs):
+        ref = decode(blob)
+        assert all(np.array_equal(a.values, b.values)
+                   for a, b in zip(got.attributes, ref.attributes))

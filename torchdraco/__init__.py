@@ -14,6 +14,12 @@ PyTorch twin:
                             multi-lane rANS coder), D1 rans_decode_lanes
   parallel/batch.py         BatchEncoder.encode_meshes_device
   parallel/decode_batch.py  BatchDecoder.decode_blobs_shared_topology
+
+and the NORMAL and TEX_COORD chains of both, plain functions on tensors
+(XLA programs in tpudraco, no kernel of their own there either):
+
+  ops/normals.py            normal_encode_chain, normal_decode_chain
+  ops/texcoords.py          uv_encode_chain
 """
 
 from __future__ import annotations
@@ -39,16 +45,37 @@ def make_mesh_batch(batch: int, n: int, seed: int = 0):
     return positions, np.asarray(faces, dtype=np.int64)
 
 
-def build_meshes(positions: np.ndarray, faces: np.ndarray) -> list:
-    """One position-only Mesh per row of ``positions``."""
+def make_normal_uv_batch(positions: np.ndarray, n: int, seed: int = 0):
+    """The other two attributes of the default set for ``positions`` (batch,
+    n*n, 3): unit normals drawn from ``seed`` (batch, n*n, 3) float32, and
+    UVs (batch, n*n, 2) float32, each position's x and y over n."""
+    rng = np.random.RandomState(seed)
+    nrm = rng.randn(*positions.shape).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    uvs = (positions[..., :2] / np.float32(n)).astype(np.float32)
+    return nrm, uvs
+
+
+def build_meshes(positions: np.ndarray, faces: np.ndarray,
+                 normals: np.ndarray | None = None,
+                 uvs: np.ndarray | None = None) -> list:
+    """One Mesh per row of ``positions``: POSITION, and with ``normals`` /
+    ``uvs`` (one row a mesh) a NORMAL / TEX_COORD attribute per corner,
+    parented to the positions."""
     from .models import AttributeDomain, AttributeType, MeshBuilder
 
     meshes = []
-    for p in positions:
+    for b, p in enumerate(positions):
         mb = MeshBuilder()
         mb.set_connectivity_attribute(faces)
-        mb.add_attribute(p, AttributeType.POSITION,
-                         AttributeDomain.POSITION)
+        pid = mb.add_attribute(p, AttributeType.POSITION,
+                               AttributeDomain.POSITION)
+        if normals is not None:
+            mb.add_attribute(normals[b], AttributeType.NORMAL,
+                             AttributeDomain.CORNER, parents=[pid])
+        if uvs is not None:
+            mb.add_attribute(uvs[b], AttributeType.TEX_COORD,
+                             AttributeDomain.CORNER, parents=[pid])
         meshes.append(mb.build())
     return meshes
 

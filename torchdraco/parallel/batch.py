@@ -1,11 +1,13 @@
 """Batch encoding of meshes that share one topology, on one device.
 
-Counterpart of the position path of ``tpudraco/parallel/batch.py``: meshes
+Counterpart of the batch path of ``tpudraco/parallel/batch.py``: meshes
 are grouped by topology; per group the host runs the connectivity pass once
 and quantizes every mesh (the canonical formula, C++), the quantized values
 go to the device as uint16, the fused step (K1, K2) and the multi-lane rANS
-coder (K3) run there, and the host assembles each ``.drc`` from the cached
-connectivity bytes and the device's payload. Output bytes are identical to
+coder (K3) run there for the position attribute, the NORMAL and TEX_COORD
+attributes run their chains (ops/normals.py, ops/texcoords.py) on the same
+uploaded positions, and the host assembles each ``.drc`` from the cached
+connectivity bytes and the device's payloads. Output bytes are identical to
 the per-mesh host ``encode()`` of ``torchdraco.encode``.
 
 The host helpers (``PreparedTopology`` ... ``quantize_positions_host``) are
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import time
 
 import numpy as np
 import torch
@@ -27,11 +30,19 @@ from ..encode import (
 )
 from ..encode.attribute import encode_attributes
 from ..encode.connectivity import EdgebreakerEncoder
+from ..entropy.symbol_coding import DIRECT_CODED, encode_symbols
 from ..models import AttributeType, TableView
 from ..native import topo as native_topo
 from ..ops.gathers import build_parallelogram_gathers
 from ..ops.device import encode_step_from_q_cuda
+from ..ops.normals import (
+    collect_normal_rings, normal_encode_chain, rings_to_torch,
+)
 from ..ops.rans_lanes import encode_group_entropy_device
+from ..ops.texcoords import (
+    collect_uv_gathers, uv_encode_chain, uv_gathers_to_torch,
+)
+from ..shared.prediction import write_normal_flips, write_tex_orientations
 from ..shared.sequencer import compute_sequence
 from ..wire.byte_io import ByteWriter
 
@@ -39,7 +50,8 @@ from ..wire.byte_io import ByteWriter
 class PreparedTopology:
     """Reusable connectivity state for meshes sharing one topology: the
     connectivity byte blob, the corner tables, per-attribute traversal
-    sequences, and the per-device gather tensors of the fused step."""
+    sequences, the per-device gather tensors of the fused step, and the
+    normal rings and UV gathers of the attribute chains."""
 
     def __init__(self, mesh) -> None:
         w = ByteWriter()
@@ -52,6 +64,10 @@ class PreparedTopology:
         self.pred_gathers: dict[int, dict] = {}
         # str(device) -> gather tensors of the position attribute
         self.dev_gathers: dict[str, dict] = {}
+        self.normal_rings: dict[int, dict] = {}  # lazy (ops/normals.py)
+        self.uv_gathers: dict[int, dict] = {}    # lazy (ops/texcoords.py)
+        # (kind, attribute, str(device)) -> the tensors of either
+        self.dev_chain_tables: dict[tuple, dict] = {}
         for i in range(len(mesh.attributes)):
             self.sequences[i] = compute_sequence(
                 self.view_for(i), list(self.conn_out.corners_of_edgebreaker))
@@ -62,6 +78,33 @@ class PreparedTopology:
         if 0 < i <= len(aict.attribute_tables):
             att_table = aict.attribute_tables[i - 1]
         return TableView(aict.corner_table, att_table)
+
+    def rings_for(self, i: int) -> dict:
+        if i not in self.normal_rings:
+            self.normal_rings[i] = collect_normal_rings(
+                self.view_for(i), self.sequences[i])
+        return self.normal_rings[i]
+
+    def uv_gathers_for(self, i: int, num_pos_points: int) -> dict:
+        if i not in self.uv_gathers:
+            self.uv_gathers[i] = collect_uv_gathers(
+                self.view_for(i), self.sequences[i], num_pos_points)
+        return self.uv_gathers[i]
+
+    def dev_rings_for(self, i: int, dev: torch.device) -> dict:
+        key = ("rings", i, str(dev))
+        if key not in self.dev_chain_tables:
+            self.dev_chain_tables[key] = rings_to_torch(self.rings_for(i),
+                                                        dev)
+        return self.dev_chain_tables[key]
+
+    def dev_uv_gathers_for(self, i: int, num_pos_points: int,
+                           dev: torch.device) -> dict:
+        key = ("uv", i, str(dev))
+        if key not in self.dev_chain_tables:
+            self.dev_chain_tables[key] = uv_gathers_to_torch(
+                self.uv_gathers_for(i, num_pos_points), dev)
+        return self.dev_chain_tables[key]
 
 
 def topology_signature(mesh) -> str:
@@ -81,6 +124,8 @@ DEFAULT_DEPTHS = {"bits": 11, "normal_bits": 8, "uv_bits": 10}
 _DEPTH_TYPES = (("bits", AttributeType.POSITION),
                 ("normal_bits", AttributeType.NORMAL),
                 ("uv_bits", AttributeType.TEX_COORD))
+# the attribute types that have a device chain beside the position path
+_CHAIN_TYPES = (AttributeType.NORMAL, AttributeType.TEX_COORD)
 
 
 def _device_quant_bits(cfg) -> dict | None:
@@ -213,6 +258,21 @@ def _device_gathers(topo: PreparedTopology, pos_att, dev: torch.device,
     return topo.dev_gathers[key]
 
 
+def _host_quantize(batch: np.ndarray, bits: int):
+    """Quantize a (B, V, C) float32 batch on the host (C++, the canonical
+    formula; numpy where the native library is missing or the depth passes
+    16 bits, and for non-finite input, which raises there). Returns (q,
+    mins, delta_max, vmin, vmax): q uint16 up to 16 bits, int32 past it."""
+    got = native.quantize_batch(batch, bits) if bits <= 16 else None
+    if got is not None:
+        return got
+    q, mins, delta_max = quantize_positions_host(batch, bits)
+    vmin = q.min(axis=(1, 2)).astype(np.int32)
+    vmax = q.max(axis=(1, 2)).astype(np.int32)
+    return (q.astype(np.uint16) if bits <= 16 else q, mins, delta_max,
+            vmin, vmax)
+
+
 def device_encode_group(positions_batch: np.ndarray, topo: PreparedTopology,
                         pos_att, bits: int = 11, device=None) -> dict:
     """The fused step for a (B, V, C) float32 batch sharing ``topo``:
@@ -220,52 +280,189 @@ def device_encode_group(positions_batch: np.ndarray, topo: PreparedTopology,
     (int32 past 16 bits), run K1 and K2 on ``device`` (None: the card;
     ``"cpu"`` runs their plain twins). Returns symbols and
     counts on the device, plus vmin/vmax, mins, delta_max and the quantized
-    values on the host."""
+    values on the host (``q``) and as uploaded (``q_dev``)."""
     dev = resolve(device)
     B, V, C = positions_batch.shape
     gathers = _device_gathers(topo, pos_att, dev, V)
-    got = native.quantize_batch(positions_batch, bits) \
-        if bits <= 16 else None
-    if got is not None:
-        q_np, mins, delta_max, vmin, vmax = got   # q_np uint16
-        q_up = q_np
-    else:
-        # no native library, or non-finite input (this raises for it)
-        q_np, mins, delta_max = quantize_positions_host(positions_batch,
-                                                        bits)
-        vmin = q_np.min(axis=(1, 2)).astype(np.int32)
-        vmax = q_np.max(axis=(1, 2)).astype(np.int32)
-        q_up = q_np.astype(np.uint16) if bits <= 16 else q_np
-    q_dev = torch.from_numpy(q_up).to(dev)
+    q_np, mins, delta_max, vmin, vmax = _host_quantize(positions_batch, bits)
+    q_dev = torch.from_numpy(q_np).to(dev)
     vmin_dev = torch.from_numpy(np.asarray(vmin, np.int32)).to(dev)
     vmax_dev = torch.from_numpy(np.asarray(vmax, np.int32)).to(dev)
     symbols, counts = encode_step_from_q_cuda(q_dev, gathers, vmin_dev,
                                               vmax_dev, bits=bits)
     return {"symbols": symbols, "counts": counts, "vmin": vmin,
-            "vmax": vmax, "mins": mins, "delta_max": delta_max, "q": q_np}
+            "vmax": vmax, "mins": mins, "delta_max": delta_max, "q": q_np,
+            "q_dev": q_dev}
+
+
+def _attribute_eligible(meshes, idxs, att_idx, pos_id, n_comp):
+    """Device-chain eligibility shared by the normal and UV entries: the
+    attribute must be float32 with the expected component count IN EVERY
+    mesh of the group (topology_signature does not hash dtype) and must be
+    parented to the group's position attribute (the device chains predict
+    from it, matching the host's parents[0])."""
+    a0 = meshes[idxs[0]].attributes[att_idx]
+    if a0.num_components != n_comp or a0.parents != [pos_id]:
+        return False
+    return all(meshes[i].attributes[att_idx].values.dtype == np.float32
+               for i in idxs)
+
+
+def _direct_coded_payload(symbols: np.ndarray) -> bytes:
+    w = ByteWriter()
+    encode_symbols(symbols.astype(np.uint64).ravel(), 2, DIRECT_CODED, w)
+    return w.getvalue()
+
+
+def _device_extra_attribute_entries(meshes, idxs, topo: PreparedTopology,
+                                    bits: int, normal_bits: int = 8,
+                                    uv_bits: int = 10, device=None,
+                                    q_pos=None) -> dict:
+    """Device-encode the NORMAL (ops/normals.py) and TEX_COORD
+    (ops/texcoords.py) attributes of one chunk ``idxs`` of a topology
+    group, on ``device`` (None: the card). ``q_pos`` is the chunk's
+    quantized positions as already uploaded (``device_encode_group``'s
+    ``q_dev``); without it they are quantized and uploaded here, once, and
+    feed every chain. Returns
+    {position-in-idxs: {att_idx: {"payload", "xform_meta"}}}; ineligible
+    attributes (or individual "risky"/degenerate meshes) are simply
+    absent and take the host path in the assembly. An error inside a chain
+    raises."""
+    dev = resolve(device)
+    mesh0 = meshes[idxs[0]]
+    out: dict = {}
+    pos_att0 = mesh0.position_attribute()
+    pos_id = pos_att0.att_id
+
+    normal_idxs = []
+    for ni, a in enumerate(mesh0.attributes):
+        if a.att_type != AttributeType.NORMAL:
+            continue
+        # the wire rejects depths < 7 (OctOrthogonal mod-max ambiguity,
+        # portabilization.py); route out-of-range depths to the host
+        # path so its canonical error surfaces
+        if not 7 <= normal_bits <= 16:
+            continue
+        if not _attribute_eligible(meshes, idxs, ni, pos_id, 3):
+            continue
+        R = max(int(topo.rings_for(ni)["next_pt"].shape[1]), 1)
+        # the device chain runs only where no ring intermediate can leave
+        # int32 (the reference's headroom rule, kept as the routing rule:
+        # which side codes an attribute does not depend on the package)
+        if 3 * R * (1 << (2 * bits + 1)) >= (1 << 31):
+            continue
+        normal_idxs.append(ni)
+    uv_idxs = [ui for ui, a in enumerate(mesh0.attributes)
+               if a.att_type == AttributeType.TEX_COORD
+               and _attribute_eligible(meshes, idxs, ui, pos_id, 2)]
+    if not normal_idxs and not uv_idxs:
+        return out
+
+    # per-mesh degeneracy guard for normals: a zero/non-finite normal
+    # makes the host path NaN-propagate (0/0) where the device chain's
+    # division masks to 0 — route such meshes to the host
+    nrm_ok = {ni: np.array([
+        bool(np.isfinite(v).all() and not (v == 0).all(axis=1).any())
+        for v in (meshes[i].attributes[ni].values for i in idxs)])
+        for ni in normal_idxs}
+
+    def stacked(att_idx):
+        return np.stack([meshes[i].attributes[att_idx].values
+                         .astype(np.float32) for i in idxs])
+
+    uv_batches = {ui: stacked(ui) for ui in uv_idxs}
+    # non-finite UVs must take the host path (its portabilize raises the
+    # canonical error)
+    uv_idxs = [ui for ui in uv_idxs if np.isfinite(uv_batches[ui]).all()]
+    if not normal_idxs and not uv_idxs:
+        return out
+
+    if q_pos is None:
+        pos_idx = next(j for j, a in enumerate(mesh0.attributes)
+                       if a is pos_att0)
+        q_pos = torch.from_numpy(
+            _host_quantize(stacked(pos_idx), bits)[0]).to(dev)
+    uo_pos = torch.from_numpy(
+        pos_att0.unique_indices().astype(np.int64)).to(dev)
+    n = len(idxs)
+
+    for ni in normal_idxs:
+        rings = topo.dev_rings_for(ni, dev)
+        uo_nrm = torch.from_numpy(
+            mesh0.attributes[ni].unique_indices().astype(np.int64)).to(dev)
+        nrm = torch.from_numpy(stacked(ni)).to(dev)
+        s, f = normal_encode_chain(
+            q_pos, nrm, rings["tip_pt"], rings["next_pt"], rings["prev_pt"],
+            rings["mask"], uo_pos, uo_nrm, bits=normal_bits)
+        syms, flips = s.cpu().numpy(), f.cpu().numpy()
+        n_mx = (1 << normal_bits) - 1
+        for k in range(n):
+            if not nrm_ok[ni][k]:
+                continue
+            xw = ByteWriter()
+            xw.write_u32(n_mx)
+            xw.write_u32(n_mx // 2)
+            write_normal_flips(flips[k].tolist(), xw)
+            out.setdefault(k, {})[ni] = {
+                "payload": _direct_coded_payload(syms[k]),
+                "xform_meta": bytes(xw.getvalue())}
+    for ui in uv_idxs:
+        q_uv = torch.from_numpy(
+            _host_quantize(uv_batches[ui], uv_bits)[0]).to(dev)
+        syms, vmin, vmax, ovals, oflags, risky = uv_encode_chain(
+            q_pos, q_uv,
+            topo.dev_uv_gathers_for(ui, pos_att0.num_points, dev), uo_pos,
+            mesh0.attributes[ui].unique_indices(), device=dev)
+        for k in range(n):
+            if risky[k]:
+                continue  # host path handles this mesh's UVs exactly
+            xw = ByteWriter()
+            write_tex_orientations(ovals[k][oflags[k]].tolist(), xw)
+            xw.write_u32(int(vmin[k]) & 0xFFFFFFFF)
+            xw.write_u32(int(vmax[k]) & 0xFFFFFFFF)
+            out.setdefault(k, {})[ui] = {
+                "payload": _direct_coded_payload(syms[k]),
+                "xform_meta": bytes(xw.getvalue())}
+    return out
 
 
 class BatchEncoder:
-    """Encodes meshes with topology-group batching, the position attribute
-    on the device. ``cfg`` may differ from the default Config only in
-    quantization depths."""
+    """Encodes meshes with topology-group batching, the POSITION, NORMAL
+    and TEX_COORD attributes on the device. ``cfg`` may differ from the
+    default Config only in quantization depths. ``n_host_attributes``
+    counts the NORMAL and TEX_COORD attributes that a guard of the device
+    chains sent to the host encoder (per mesh and attribute); ``timings``
+    holds the host seconds of the last call by stage (``position_s``: the
+    quantize, upload, fused step and rANS coder of the position attribute;
+    ``chains_s``: the NORMAL and TEX_COORD chains with their readback and
+    host payloads)."""
 
     # meshes per device call: the group's lanes run in one K3 launch
     DEVICE_CHUNK = 512
 
     def __init__(self, cfg=None) -> None:
         self.cfg = cfg
+        self.n_host_attributes = 0
+        # host seconds of the last encode_meshes_device call, by stage
+        self.timings: dict = {}
         self._topo_cache: dict[str, PreparedTopology] = {}
 
     def encode_meshes_device(self, meshes: list, bits: int | None = None,
                              entropy: str = "device",
+                             normal_bits: int | None = None,
+                             uv_bits: int | None = None,
                              device=None) -> list[bytes]:
-        """Per topology group, the fused step and the rANS coder run on
+        """Per topology group, the fused step and the rANS coder of the
+        position attribute and the NORMAL and TEX_COORD chains run on
         ``device`` (None: the card; ``"cpu"`` runs the kernels' plain
         twins) in chunks of DEVICE_CHUNK meshes; the host assembles the
-        bytes. Output equals sequential encode(). Errors raise; there
-        is no host fallback. Only the position attribute is ported: a mesh
-        with any other attribute raises NotImplementedError."""
+        bytes. Output equals sequential encode(). ``bits``/``normal_bits``/
+        ``uv_bits`` are the -qp/-qn/-qt depths; unset depths come from
+        ``self.cfg``. An attribute or mesh that a chain's guard refuses
+        (a zero or non-finite normal, a "risky" UV row, non-finite UVs, a
+        type or parent the chains do not take) is coded by the host
+        encoder inside the assembly, same bytes, and counted in
+        ``n_host_attributes``. Errors raise; there is no host fallback."""
         if entropy != "device":
             raise ValueError(f"entropy={entropy!r}: only the device rANS "
                              "coder is ported")
@@ -276,40 +473,52 @@ class BatchEncoder:
                 "BatchEncoder.cfg goes beyond the device batch's config "
                 "space (quantization depths only)")
         bits = dflt["bits"] if bits is None else bits
-        if not _depths_in_range(bits, dflt["normal_bits"], dflt["uv_bits"]):
-            raise ValueError(f"position quantization depth {bits} out of "
-                             "range [1..30]")
-        for m in meshes:
-            extra = [a.att_type.name for a in m.attributes
-                     if a.att_type != AttributeType.POSITION]
-            if extra:
-                raise NotImplementedError(
-                    f"attributes {extra} beyond POSITION: the NORMAL and "
-                    "TEX_COORD device chains are not ported yet (ROADMAP "
-                    "open item 6)")
-        cfg = _merged_quant_cfg(self.cfg, bits, dflt["normal_bits"],
-                                dflt["uv_bits"])
+        normal_bits = (dflt["normal_bits"] if normal_bits is None
+                       else normal_bits)
+        uv_bits = dflt["uv_bits"] if uv_bits is None else uv_bits
+        if not _depths_in_range(bits, normal_bits, uv_bits):
+            raise ValueError(
+                f"quantization depths out of range (position {bits}, "
+                f"normal {normal_bits} [7..16], texcoord {uv_bits})")
+        cfg = _merged_quant_cfg(self.cfg, bits, normal_bits, uv_bits)
 
+        t = self.timings = dict.fromkeys(
+            ("signatures_s", "topology_s", "position_s", "chains_s",
+             "assembly_s"), 0.0)
+        clock = time.perf_counter
+        t0 = clock()
         groups: dict[str, list[int]] = {}
         for idx, m in enumerate(meshes):
             groups.setdefault(topology_signature(m), []).append(idx)
+        t["signatures_s"] = clock() - t0
         out: list[bytes | None] = [None] * len(meshes)
         bits_byte = bytes([bits])
         for sig, idxs in groups.items():
+            t0 = clock()
             topo = self._topo_cache.get(sig)
             if topo is None:
                 topo = PreparedTopology(meshes[idxs[0]])
                 self._topo_cache[sig] = topo
+            t["topology_s"] += clock() - t0
             pos_att0 = meshes[idxs[0]].position_attribute()
             batch = np.stack([meshes[i].position_attribute().values
                               .astype(np.float32) for i in idxs])
             for c0 in range(0, len(idxs), self.DEVICE_CHUNK):
+                chunk = idxs[c0:c0 + self.DEVICE_CHUNK]
+                t0 = clock()
                 dev_c = device_encode_group(
                     batch[c0:c0 + self.DEVICE_CHUNK], topo, pos_att0,
                     bits=bits, device=dev)
                 payloads = encode_group_entropy_device(dev_c["symbols"],
                                                        dev_c["counts"])
-                for k, i in enumerate(idxs[c0:c0 + self.DEVICE_CHUNK]):
+                t1 = clock()
+                # the NORMAL and TEX_COORD chains read the positions the
+                # fused step uploaded: quantized once, uploaded once
+                extra = _device_extra_attribute_entries(
+                    meshes, chunk, topo, bits=bits, normal_bits=normal_bits,
+                    uv_bits=uv_bits, device=dev, q_pos=dev_c["q_dev"])
+                t2 = clock()
+                for k, i in enumerate(chunk):
                     w = ByteWriter()
                     w.write_u32(int(dev_c["vmin"][k]) & 0xFFFFFFFF)
                     w.write_u32(int(dev_c["vmax"][k]) & 0xFFFFFFFF)
@@ -326,6 +535,13 @@ class BatchEncoder:
                                      "xform_meta": bytes(w.getvalue()),
                                      "port_meta": port_meta,
                                      "port_values": dev_c["q"][k]}}
+                    pre.update(extra.get(k, {}))
+                    self.n_host_attributes += sum(
+                        1 for j, a in enumerate(meshes[i].attributes)
+                        if a.att_type in _CHAIN_TYPES and j not in pre)
                     out[i] = encode_with_topology(meshes[i], topo, cfg=cfg,
                                                   precomputed=pre)
+                t["position_s"] += t1 - t0
+                t["chains_s"] += t2 - t1
+                t["assembly_s"] += clock() - t2
         return out

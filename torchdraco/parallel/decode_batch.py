@@ -7,13 +7,16 @@ parses and reconstructs the connectivity once for the group, collects every
 blob's DirectCoded symbol streams, decodes all of them as lanes of one
 ``rans_decode_lanes`` call per precision (D1, which searches each lane's
 cumulative row: no slot table is built or uploaded), and injects the
-symbols into the host attribute chains. Output meshes equal the per-blob
-host ``decode()`` of ``torchdraco.decode``.
+symbols into the host attribute chains. With ``normals="device"`` the
+decode is phased: each blob's chains run with the NORMAL chain deferred,
+then every deferred chain of the group runs as one batch on the device
+(ops/normals.normal_decode_chain). Output meshes equal the per-blob host
+``decode()`` of ``torchdraco.decode``.
 
 A blob that is malformed, of another topology, or carries a stream the
 lanes cannot take (LengthCoded) goes to the host decoder on its own; those
-are counted in ``BatchDecoder.n_host_blobs``. A failure of the device stage
-raises: no batch falls back to the host.
+are counted in ``BatchDecoder.n_host_blobs``. A failure of a device stage
+(the lanes, the normal phase) raises: no batch falls back to the host.
 """
 
 from __future__ import annotations
@@ -24,10 +27,13 @@ import numpy as np
 import torch
 
 from ..decode import _assemble_mesh, decode, decode_header
-from ..decode.attribute import decode_attributes
+from ..decode.attribute import _deportabilize, decode_attributes
 from ..decode.connectivity import decode_connectivity
 from ..device import resolve
 from ..entropy.symbol_coding import parse_direct_coded_stream
+from ..ops.normals import (
+    collect_normal_rings, normal_decode_chain, rings_to_torch,
+)
 from ..ops.rans_lanes import rans_decode_lanes
 from ..wire.byte_io import ByteReader
 
@@ -104,8 +110,26 @@ class BatchDecoder:
         """Each blob through the host decoder; None where it fails."""
         return [self._host_decode(b) for b in blobs]
 
+    # normals="auto": below this many matching blobs, and for a mesh below
+    # this many faces, the per-blob host chains stand; a batch that large,
+    # or a single mesh that large, takes the device phase. (tpudraco also
+    # asks a probe of its host-to-device link here; that gate measured its
+    # own link and has no counterpart.)
+    PHASED_NORMALS_MIN_BLOBS = 16
+    PHASED_NORMALS_MIN_FACES = 1 << 17
+
+    def _phased_auto(self, n_blobs: int, conn) -> bool:
+        return (n_blobs >= self.PHASED_NORMALS_MIN_BLOBS
+                or conn.corner_table.num_faces()
+                >= self.PHASED_NORMALS_MIN_FACES)
+
+    def _phased(self, normals: str, n_blobs: int, conn) -> bool:
+        return normals == "device" or (
+            normals == "auto" and self._phased_auto(n_blobs, conn))
+
     def decode_blobs_shared_topology(self, blobs: list[bytes],
                                      entropy: str = "host",
+                                     normals: str = "auto",
                                      device=None) -> list:
         """Batch decode for blobs made from one topology group (the output
         of ``BatchEncoder.encode_meshes_device``): the connectivity of the
@@ -115,11 +139,21 @@ class BatchDecoder:
 
         ``entropy="device"`` decodes every attribute symbol stream of the
         group as rANS lanes on ``device`` (None: the card; ``"cpu"``, where
-        the lanes take D1's plain twin, is had by asking). NORMAL chains
-        decode per blob on the host."""
+        the lanes take D1's plain twin, is had by asking).
+
+        ``normals``: "host" keeps the per-blob vectorized NORMAL chains;
+        "device" batches them across blobs on ``device`` (the PHASED
+        decode: positions first per blob, then all normal chains as one
+        ring-predict + inverse-transform batch); "auto" picks device at
+        PHASED_NORMALS_MIN_BLOBS matching blobs or a mesh of
+        PHASED_NORMALS_MIN_FACES faces. Values are identical either way;
+        a failure of the device phase raises."""
         if entropy not in ("host", "device"):
             raise ValueError(f"entropy must be 'host' or 'device', got "
                              f"{entropy!r}")
+        if normals not in ("host", "device", "auto"):
+            raise ValueError(f"normals must be 'host', 'device' or 'auto', "
+                             f"got {normals!r}")
         self.timings = {}
         if not blobs:
             return []
@@ -137,7 +171,7 @@ class BatchDecoder:
 
         if entropy == "device":
             return self._decode_shared_device(blobs, conn, conn_end, prefix,
-                                              resolve(device))
+                                              resolve(device), normals)
         out: list = [None] * len(blobs)
         items = []
         for i, blob in enumerate(blobs):
@@ -145,31 +179,106 @@ class BatchDecoder:
                 out[i] = self._host_decode(blob)  # another topology
                 continue
 
-            def fn(_b=blob):
+            def fn(collector, _b=blob):
                 return decode_attributes(
-                    ByteReader(_b, pos=conn_end), conn)
+                    ByteReader(_b, pos=conn_end), conn,
+                    normal_collector=collector)
             items.append((i, fn))
-        self._decode_items_with_phase(conn, items, out)
+        self._decode_items_with_phase(
+            conn, items, out, self._phased(normals, len(items), conn),
+            device)
         return out
 
-    @staticmethod
-    def _decode_items_with_phase(conn, items, out) -> None:
-        """The unphased branch of tpudraco's method of this name: each
-        item's attribute decode, then the mesh assembly. ``items``: (blob
-        index, callable returning the decoded attribute list); a blob
-        whose decode raises becomes None."""
+    def _decode_items_with_phase(self, conn, items, out, phased: bool,
+                                 device) -> None:
+        """Each item's attribute decode, then the mesh assembly; when
+        ``phased``, with the NORMAL chains deferred by the collector and
+        run as one batch on ``device`` between the two. ``items``: (blob
+        index, callable taking the collector and returning the decoded
+        attribute list); a blob whose own decode raises becomes None, a
+        failure of the batched phase raises."""
+        deferred: list = []       # (blob idx, att idx, da, payload)
+        pending: dict = {}        # blob idx -> decoded attribute list
         for i, fn in items:
             try:
-                out[i] = _assemble_mesh(conn, fn())
+                if phased:
+                    pending[i] = fn(lambda ai, da, pl, _i=i:
+                                    deferred.append((_i, ai, da, pl)))
+                else:
+                    out[i] = _assemble_mesh(conn, fn(None))
+            except Exception:  # per-blob isolation
+                deferred = [d for d in deferred if d[0] != i]
+                pending.pop(i, None)
+                out[i] = None
+        if deferred:
+            t0 = time.perf_counter()
+            self._fill_deferred_normals(conn, deferred, device)
+            self.timings["normals_s"] = time.perf_counter() - t0
+        for i, atts in pending.items():
+            try:
+                out[i] = _assemble_mesh(conn, atts)
             except Exception:  # per-blob isolation
                 out[i] = None
 
+    @staticmethod
+    def _fill_deferred_normals(conn, deferred: list, device) -> None:
+        """Phase 2 of the phased decode: batch every deferred NORMAL chain
+        (same attribute slot, same topology) through the device ring
+        prediction + OctOrthogonal inverse (ops/normals.normal_decode_chain
+        — bit-identical to the host chain) on ``device`` (None: the card),
+        then scatter, dequantize, and fill each DecodedAttribute in
+        place. An error raises."""
+        dev = resolve(device)
+        groups: dict = {}
+        for bi, ai, da, pl in deferred:
+            # the attribute TRAVERSAL is part of the key: blobs with
+            # different TraversalType bytes have different sequences over
+            # the same topology
+            trav = int(pl["h"].get("traversal", 0))
+            groups.setdefault((ai, int(pl["max_q"]), trav), []).append(
+                (da, pl))
+        for (ai, max_q, trav), items in groups.items():
+            pl0 = items[0][1]
+            view, seq = pl0["view"], pl0["sequence"]
+            bits = int(max_q).bit_length()  # max_q == 2^bits - 1
+            cache = getattr(conn, "_phased_rings", None)
+            if cache is None:
+                cache = conn._phased_rings = {}
+            rings = cache.get((ai, trav, str(dev)))
+            if rings is None:
+                rings = cache[(ai, trav, str(dev))] = rings_to_torch(
+                    collect_normal_rings(view, seq), dev,
+                    rows=pl0["pos"].da.vertex_of_corner)
+            T = len(seq)
+            q_pos = np.stack([
+                np.asarray(pl["pos"].da.quantized_by_vertex, dtype=np.int32)
+                for _, pl in items])
+            sym = np.stack([np.asarray(pl["symbols"][:T], dtype=np.int32)
+                            for _, pl in items])
+            fl = np.stack([np.asarray(pl["flips"][:T], dtype=bool)
+                           for _, pl in items])
+            vals = normal_decode_chain(
+                torch.from_numpy(q_pos).to(dev),
+                torch.from_numpy(sym).to(dev), torch.from_numpy(fl).to(dev),
+                rings["tip_pt"], rings["next_pt"], rings["prev_pt"],
+                rings["mask"], bits=bits).cpu().numpy()
+            _opp, ctv, _lm = view.as_arrays()
+            rows = ctv[np.asarray(seq, dtype=np.int64)]
+            for b, (da, pl) in enumerate(items):
+                vbv = np.zeros((view.num_vertices, 2), dtype=np.int64)
+                vbv[rows] = vals[b]
+                da.quantized_by_vertex = vbv
+                da.values_by_vertex = _deportabilize(
+                    vbv, pl["h"], pl["port_meta"])
+
     def _decode_shared_device(self, blobs, conn, conn_end, prefix,
-                              device: torch.device) -> list:
+                              device: torch.device, normals: str) -> list:
         """Three phases: (A) one structural pass per blob collects every
         DirectCoded stream (table + payload bytes) without decoding it,
         (B) all streams rANS-decode as device lanes grouped by precision,
-        (C) a second pass injects the symbols into the host chains."""
+        (C) a second pass injects the symbols into the host chains (with
+        the NORMAL chains deferred to the batched device phase where
+        ``normals`` says so, see decode_blobs_shared_topology)."""
         t0 = time.perf_counter()
         out: list = [None] * len(blobs)
         streams: dict = {}  # (blob idx, att idx) -> (dist, prec, payload, n)
@@ -203,15 +312,17 @@ class BatchDecoder:
         t2 = time.perf_counter()
         items = []
         for i in matching:
-            def fn(_i=i):
+            def fn(collector, _i=i):
                 def inject(att_idx, n_sym, n, reader):
                     parse_direct_coded_stream(reader)  # advance
                     return decoded[(_i, att_idx)][:n_sym].astype(np.uint64)
                 return decode_attributes(
                     ByteReader(blobs[_i], pos=conn_end), conn,
-                    symbol_source=inject)
+                    symbol_source=inject, normal_collector=collector)
             items.append((i, fn))
-        self._decode_items_with_phase(conn, items, out)
+        self._decode_items_with_phase(
+            conn, items, out, self._phased(normals, len(matching), conn),
+            device)
         self.timings.update(collect_s=t1 - t0, device_stage_s=t2 - t1,
                             assemble_s=time.perf_counter() - t2)
         return out
