@@ -15,7 +15,15 @@ TEX_COORD chains (torch operations, no kernel of their own) on the card
 against the same functions on the CPU; encode_meshes_device over 512 meshes
 with positions, normals and UVs against the host plane; and the phased
 decode (normals="device") over those blobs against decode(), in turns with
-normals="host". That the port's host
+normals="host". Then one large mesh (phase 12): a 1024 x 1024 grid through
+the single-mesh routes, encode_mesh_device with positions, normals and UVs
+and encode_mesh_device_chunked with positions, each against encode(), the
+resident route's peak card memory on that grid and on grids with UVs and
+with one fan vertex against the estimate that the size dispatch
+_encode_huge decides by, the dispatch itself, K1 and K2 at the single
+row's shapes against their twins, and the chunk quantize against numpy
+bit for bit. That the
+port's host
 codec equals tpudraco's is what the CPU tests show
 (tests/test_torch_host_codec.py); this script imports nothing of it.
 
@@ -54,6 +62,14 @@ HBM_BYTES_S, ALU_OPS_S = 3.35e12, 67e12
 NORMAL_BITS, UV_BITS = 8, 10     # the default -qn and -qt
 DEEP_BATCH, DEEP_QP, DEEP_QN, DEEP_QT = 32, 18, 16, 16
 FLOAT_CASES = 1 << 22
+# phase 12: one grid of HUGE_GRID x HUGE_GRID vertices (above the 2^19
+# vertices at which the reference's router calls a lone mesh huge),
+# streamed in chunks of HUGE_CHUNK rows
+HUGE_GRID, HUGE_CHUNK = 1024, 1 << 15
+# and a FAN_GRID x FAN_GRID grid with one vertex of valence FAN (a CAD
+# tessellation's fan cap), which widens every normal ring to FAN slots:
+# the widest ring the device chain takes at -qp 11 is 85
+FAN_GRID, FAN = 512, 80
 OPS = {"predict_residual": 12, "histogram": 2, "rans_words_scan": 30,
        "rans_scan_dense": 30, "rans_decode_lanes": 30}
 
@@ -171,6 +187,7 @@ def main() -> int:
     _check(smi.returncode == 0, f"nvidia-smi: {smi.stderr.strip()}")
     smi_line = smi.stdout.strip().splitlines()[0]
     print(smi_line)
+    t_start = time.perf_counter()
     _, build_s = wall_s(_build.load)
     ptxas = [ln.strip() for ln in _build.build_info.get("ptxas", "")
              .splitlines() if "registers" in ln or "Compiling entry" in ln]
@@ -1122,6 +1139,15 @@ def main() -> int:
           f"phase 7 traced: busy {trace7['busy_ms']:.2f} of "
           f"{trace7['wall_ms']:.1f} ms, idle share {trace7['idle_share']}")
 
+    # ---- phase 12: one large mesh through the single-mesh routes -------
+    torch.cuda.empty_cache()
+    single, k12 = _phase12(torch, np, torchdraco, encode, tdev, tbatch,
+                           reset_launch_counts, dev, sync, wall_s, cuda_ms,
+                           cuda_ms_batches, kernel_only_ms, max_abs_err,
+                           nbytes, bound, traced, fa, half_k, smi_line,
+                           alone["rans_words_scan"] * 1e6 / n_sym)
+    errs.update({name: e["max_abs_err"] for name, e in k12.items()})
+
     src = "torchdraco/ops/csrc/"
     table = [
         ("predict_residual", "predict_residual.cu",
@@ -1147,14 +1173,412 @@ def main() -> int:
                 "share_of_bound": bounds[name]["bound_ms"] / k[name][0],
                 "kernel_only_ms": alone[name]}
                for name, f, rep, counts in table]
-    print("chip_smoke details: " + json.dumps({**report, "chains": chains, "kernels": kernels}),
+    kernels += [{"name": name, "route": "cuda", "source": src + e["file"],
+                 "replaces": e["replaces"],
+                 **{key: e[key] for key in (
+                     "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                     "bound_by", "library_ms", "bytes", "share_of_bound",
+                     "kernel_only_ms", "shape")}}
+                for name, e in k12.items()]
+    _check(all(e["launches"] > 0 and e["max_abs_err"] == 0
+               for e in k12.values()),
+           f"a long-row kernel: {k12}")
+    print("chip_smoke details: " + json.dumps({**report, "chains": chains,
+                                               "single_mesh": single,
+                                               "kernels": kernels}),
           file=sys.stderr)
+    report["run_s"] = time.perf_counter() - t_start
+    print(f"chip_smoke: phases 1-12 in {report['run_s']:.1f} s")
+    print(json.dumps({"single_mesh": single}))
     print(json.dumps({"chains": chains}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _phase12(torch, np, torchdraco, encode, tdev, tbatch,
+             reset_launch_counts, dev, sync, wall_s, cuda_ms,
+             cuda_ms_batches, kernel_only_ms, max_abs_err, nbytes, bound,
+             traced, fa, half_k, smi_line, k3_ns_per_step):
+    """One HUGE_GRID x HUGE_GRID mesh through encode_mesh_device (with
+    normals and UVs), encode_mesh_device_chunked (positions) and
+    _encode_huge, each against encode(); K1 and K2 at the single row's
+    shapes against their twins; the chunk quantize against numpy. Returns
+    (the phase's record, {kernel line name: entry})."""
+    t_phase = time.perf_counter()
+    n = HUGE_GRID
+    V = n * n
+    (pos, faces), make_s = wall_s(lambda: torchdraco.make_mesh_batch(
+        1, n, SEED))
+    nrm, uvs = torchdraco.make_normal_uv_batch(pos, n, SEED + 3)
+    (mesh3,), build_s = wall_s(lambda: torchdraco.build_meshes(
+        pos, faces, nrm, uvs))
+    (mesh1,) = torchdraco.build_meshes(pos, faces)
+    F = len(faces)
+    one = {"card": smi_line, "vertices": V, "faces": F,
+           "mesh_build_s": make_s + build_s}
+    counted = (tdev.predict_residual, tdev.histogram)
+
+    def peak_of(fn):
+        """(fn's result, its wall s, the peak of allocated card memory
+        above what was held before)."""
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out, secs = wall_s(fn)
+        return out, secs, torch.cuda.max_memory_allocated() - base
+
+    # 12.1: the resident route, positions + normals + UVs
+    enc = tbatch.BatchEncoder()
+    reset_launch_counts()
+    blob_r, first_s, peak = peak_of(lambda: enc.encode_mesh_device(mesh3))
+    launches_r = {fn.__name__: fn.n_launches for fn in counted}
+    stages_first = dict(enc.timings)
+    _check(launches_r == {"predict_residual": 1, "histogram": 1},
+           f"the resident route launches K1 and K2 once each: {launches_r}")
+    _check(enc.n_host_attributes == 0,
+           f"{enc.n_host_attributes} attributes went to the host encoder")
+    ref3, host3_s = wall_s(lambda: encode(mesh3))
+    _check(blob_r == ref3, "encode_mesh_device differs from encode()")
+    blob, s = wall_s(lambda: enc.encode_mesh_device(mesh3))
+    _check(blob == ref3, "a warm encode_mesh_device differs")
+    warm, stages = [s], [dict(enc.timings)]
+    trace_r = traced(lambda: enc.encode_mesh_device(mesh3))
+    stages.append(dict(enc.timings))  # the traced run's
+    host3_runs = [host3_s]
+    one["resident"] = {
+        "first_call_s": first_s, "first_call_stages_s": stages_first,
+        "warm_s": warm, "warm_stages_s": stages, "host_encode_s": host3_runs,
+        "peak_bytes": int(peak), "peak_bytes_per_vertex": peak / V,
+        "table_bytes": enc._topo_for(mesh3)[1].device_bytes(),
+        "trace": trace_r, "launches": launches_r, "bytes_out": len(ref3)}
+    print(f"phase 12.1: encode_mesh_device, {n}x{n} grid ({V} vertices, "
+          f"{F} faces) with positions, normals and UVs -> {len(ref3)} B, "
+          f"equal to encode(); 0 host attributes; launches {launches_r}; "
+          f"first call {first_s:.3f} s "
+          f"{ {k: round(v, 3) for k, v in stages_first.items()} }, warm "
+          f"{[round(x, 3) for x in warm]} s "
+          f"{ {k: round(v, 3) for k, v in stages[-1].items()} }; host "
+          f"encode() {[round(x, 3) for x in host3_runs]} s; peak card "
+          f"memory {peak / 1e6:.1f} MB ({peak / V:.1f} B a vertex); traced "
+          f"warm run {trace_r['wall_ms']:.1f} ms, device busy "
+          f"{trace_r['busy_ms']:.2f} ms over {trace_r['launches']} launches "
+          f"and {trace_r['copies']} copies, idle share "
+          f"{trace_r['idle_share']}")
+
+    # 12.2: the chunked route, positions only; every segment's counts
+    # are recorded to hold their sum to T x 3
+    seg_counts = []
+    real_step = tbatch.encode_step_chunk
+
+    def recorded(*a, **kw):
+        sym, cnt = real_step(*a, **kw)
+        seg_counts.append(int(cnt.sum()))
+        return sym, cnt
+    tbatch.encode_step_chunk = recorded
+    reset_launch_counts()
+    try:
+        blob_c, chunked_first_s = wall_s(
+            lambda: enc.encode_mesh_device_chunked(mesh1, chunk=HUGE_CHUNK))
+    finally:
+        tbatch.encode_step_chunk = real_step
+    launches_c = {fn.__name__: fn.n_launches for fn in counted}
+    stages_c = [dict(enc.timings)]
+    ref1, host1_s = wall_s(lambda: encode(mesh1))
+    T = mesh1.position_attribute().num_points  # a grid: T = V
+    n_seg = -(-T // HUGE_CHUNK)
+    _check(blob_c == ref1, "encode_mesh_device_chunked differs from encode()")
+    _check(len(seg_counts) == n_seg and sum(seg_counts) == T * 3
+           and launches_c["histogram"] == n_seg,
+           f"chunked histogram: {len(seg_counts)} segments summing to "
+           f"{sum(seg_counts)} of {T * 3}, launches {launches_c}")
+    blob, s = wall_s(lambda: enc.encode_mesh_device_chunked(
+        mesh1, chunk=HUGE_CHUNK))
+    _check(blob == ref1, "a warm encode_mesh_device_chunked differs")
+    chunked_warm = [s]
+    stages_c.append(dict(enc.timings))
+    resident1, res1_s, peak1 = peak_of(lambda: enc.encode_mesh_device(mesh1))
+    _check(resident1 == ref1, "encode_mesh_device (positions) differs")
+    res1_warm = wall_s(lambda: enc.encode_mesh_device(mesh1))[1]
+    one["chunked"] = {"first_call_s": chunked_first_s, "warm_s": chunked_warm,
+                      "stages_s": stages_c, "segments": n_seg,
+                      "launches": launches_c, "host_encode_s": host1_s,
+                      "resident_positions_only_s": [res1_s, res1_warm],
+                      "bytes_out": len(ref1)}
+    print(f"phase 12.2: encode_mesh_device_chunked, positions only, chunk "
+          f"{HUGE_CHUNK}: {n_seg} segments whose counts sum to T x 3 = "
+          f"{T * 3}, -> {len(ref1)} B equal to encode(); first call "
+          f"{chunked_first_s:.3f} s, warm {[round(x, 3) for x in chunked_warm]}"
+          f" s, passes {[{k: round(v, 3) for k, v in st.items()} for st in stages_c]}"
+          f"; host encode() {host1_s:.3f} s; the resident route on the same "
+          f"mesh {res1_s:.3f} / {res1_warm:.3f} s")
+
+    # 12.3: the size dispatch. The resident route's peak card memory on
+    # the grid with and without normals and UVs, on a grid with UVs alone
+    # and on a grid with one fan vertex, against the estimate _encode_huge decides by; then
+    # _encode_huge on both sides of a RESIDENT_MAX_BYTES lowered to the
+    # positions-only grid's estimate
+    posf, facesf = torchdraco.make_mesh_batch(1, FAN_GRID, SEED, fan=FAN)
+    nrmf, uvsf = torchdraco.make_normal_uv_batch(posf, FAN_GRID, SEED + 3)
+    (meshf,) = torchdraco.build_meshes(posf, facesf, nrmf, uvsf)
+    enc_f = tbatch.BatchEncoder()
+    blob_f, fan_s, peak_f = peak_of(lambda: enc_f.encode_mesh_device(meshf))
+    ref_f, host_f_s = wall_s(lambda: encode(meshf))
+    _check(blob_f == ref_f, "encode_mesh_device on the fan mesh differs")
+    _check(enc_f.n_host_attributes == 0,
+           f"the fan mesh sent {enc_f.n_host_attributes} attributes to the "
+           f"host encoder")
+    # the UV chain without the normal chain: a grid with positions and UVs
+    posu, facesu = torchdraco.make_mesh_batch(1, FAN_GRID, SEED)
+    (meshu,) = torchdraco.build_meshes(
+        posu, facesu, None, torchdraco.make_normal_uv_batch(
+            posu, FAN_GRID, SEED + 3)[1])
+    enc_u = tbatch.BatchEncoder()
+    peak_u = peak_of(lambda: enc_u.encode_mesh_device(meshu))[2]
+    _check(enc_u.n_host_attributes == 0, "the UVs went to the host encoder")
+    peaks = {}
+    for name, m, e, p in (("grid, positions", mesh1, enc, peak1),
+                          (f"grid {FAN_GRID}^2, positions + UVs", meshu,
+                           enc_u, peak_u),
+                          ("grid, positions + normals + UVs", mesh3, enc,
+                           peak),
+                          (f"grid {FAN_GRID}^2 + fan {FAN}, positions + "
+                           f"normals + UVs", meshf, enc_f, peak_f)):
+        _, topo_m = e._topo_for(m)
+        rings = [int(topo_m.rings_for(i)["next_pt"].shape[1])
+                 for i, a in enumerate(m.attributes)
+                 if a.att_type == tbatch.AttributeType.NORMAL]
+        est = e._resident_peak_bytes(m)
+        peaks[name] = {"vertices": m.position_attribute().num_points,
+                       "ring_width": rings, "peak_bytes": int(p),
+                       "estimate_bytes": est, "estimate_over_peak": est / p}
+    _check(all(v["estimate_over_peak"] >= 1 for v in peaks.values()),
+           f"_resident_peak_bytes under a measured peak: {peaks}")
+    limit = enc._resident_peak_bytes(mesh1)
+    old = tbatch.BatchEncoder.RESIDENT_MAX_BYTES
+    taken = []
+    for cap in (limit - 1, limit):
+        tbatch.BatchEncoder.RESIDENT_MAX_BYTES = cap
+        try:
+            blob, s = wall_s(lambda: enc._encode_huge(mesh1))
+        finally:
+            tbatch.BatchEncoder.RESIDENT_MAX_BYTES = old
+        _check(blob == ref1, f"_encode_huge (limit {cap}) differs")
+        taken.append(("pass1_s" in enc.timings, s))
+    _check([c for c, _ in taken] == [True, False],
+           f"_encode_huge took the wrong route: {taken}")
+    one["resident_peaks"] = peaks
+    one["fan"] = {"first_call_s": fan_s, "host_encode_s": host_f_s,
+                  "bytes_out": len(ref_f)}
+    one["dispatch_s"] = {"chunked": taken[0][1], "resident": taken[1][1]}
+    print(f"phase 12.3: the resident route's peak card memory against "
+          f"_resident_peak_bytes: " + "; ".join(
+              f"{k} ({v['vertices']} vertices, rings {v['ring_width']}): "
+              f"{v['peak_bytes'] / 1e6:.1f} MB, estimate "
+              f"{v['estimate_bytes'] / 1e6:.1f} MB "
+              f"(x{v['estimate_over_peak']:.2f})" for k, v in peaks.items())
+          + f"; the fan mesh equals encode() ({fan_s:.3f} s, host encode() "
+          f"{host_f_s:.3f} s); _encode_huge with RESIDENT_MAX_BYTES "
+          f"{limit - 1} took the chunked route ({taken[0][1]:.3f} s), with "
+          f"{limit} the resident one ({taken[1][1]:.3f} s): both equal "
+          f"encode()")
+
+    # 12.4: K1 and K2 at the single row's shapes against their twins
+    _, topo = enc._topo_for(mesh1)
+    pos_att = mesh1.position_attribute()
+    dev_c = tbatch.device_encode_group(pos, topo, pos_att, bits=BITS,
+                                       device=dev)
+    q = dev_c["q_dev"]
+    g = tbatch._device_gathers(topo, pos_att, dev, V)
+    lo = torch.from_numpy(dev_c["vmin"]).to(dev)
+    hi = torch.from_numpy(dev_c["vmax"]).to(dev)
+    _check(not tdev.predict_fits_smem(V, 3, q.element_size()),
+           "K1 should take its direct-gather kernel at this row")
+    sym = tdev.predict_residual(q, g, lo, hi)
+    sync()
+    k1_err = max_abs_err(sym, tdev.predict_residual_ref(q, g, lo, hi))
+    flat = sym.view(1, -1)
+    bins = tdev.default_hist_bins(BITS)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = tdev.histogram_splits(1, flat.shape[1], bins, sms)
+    _check(splits > 1, f"K2 does not split the long row ({splits})")
+    counts = tdev.histogram(flat, bins)
+    sync()
+    k2_err = max_abs_err(counts, tdev.bincount_kernel(flat, bins))
+    rng = np.random.default_rng(SEED + 12)
+    wide = 1 << 17
+    rnd = torch.from_numpy(rng.integers(-9, wide + 9, size=(1, flat.shape[1]),
+                                        dtype=np.int32)).to(dev)
+    _check(wide > tdev.HIST_SMEM_MAX_BINS, "the wide case is in shared memory")
+    k2_wide_err = max_abs_err(tdev.histogram(rnd, wide),
+                              tdev.bincount_kernel(rnd, wide))
+    # the row a full segment of the chunked route hands K2: its first
+    # HUGE_CHUNK steps' symbols
+    seg = flat[:, :HUGE_CHUNK * 3].contiguous()
+    k2_seg_err = max_abs_err(tdev.histogram(seg, bins),
+                             tdev.bincount_kernel(seg, bins))
+    # the position symbols form one rANS stream: K3 would code it on one
+    # lane, a dependent step a symbol, where the route uses the host coder
+    from torchdraco.entropy.symbol_coding import DIRECT_CODED, encode_symbols
+    from torchdraco.wire.byte_io import ByteWriter
+    sym_np = sym[0].cpu().numpy().astype(np.uint64)
+    _, coder_s = wall_s(lambda: encode_symbols(sym_np.ravel(), 3,
+                                               DIRECT_CODED, ByteWriter()))
+    one_lane = {"symbols": int(sym_np.size), "k3_ns_per_step": k3_ns_per_step,
+                "k3_one_lane_s_estimated": sym_np.size * k3_ns_per_step / 1e9,
+                "host_coder_s": coder_s}
+    one["one_lane_rans"] = one_lane
+    print(f"phase 12.4: one rANS lane of {sym_np.size} symbols: K3 at "
+          f"{k3_ns_per_step:.1f} ns a step (phase 6, kernel alone) would take "
+          f"about {one_lane['k3_one_lane_s_estimated']:.3f} s; the host's C++ "
+          f"coder took {coder_s:.3f} s")
+    _check(k1_err == 0 and k2_err == 0 and k2_wide_err == 0
+           and k2_seg_err == 0,
+           f"long-row kernel != twin: K1 {k1_err}, K2 {k2_err} (wide "
+           f"{k2_wide_err}, segment {k2_seg_err})")
+    # one block a row, as before the split: the same wrapper with the
+    # split forced to 1 (its output checked too)
+    real_splits = tdev.histogram_splits
+    tdev.histogram_splits = lambda *a: 1
+    try:
+        k2_err1 = max_abs_err(tdev.histogram(flat, bins), counts)
+        one_block = cuda_ms_batches(lambda: tdev.histogram(flat, bins))
+        one_block_alone = kernel_only_ms(lambda: tdev.histogram(flat, bins),
+                                         "histogram_smem_kernel", reps=10)
+        one_block_wide = cuda_ms(lambda: tdev.histogram(rnd, wide), 10)
+    finally:
+        tdev.histogram_splits = real_splits
+    _check(k2_err1 == 0, "K2 on one block a row disagrees")
+
+    def k2_lib():
+        return torch.bincount(flat.view(-1), minlength=bins)
+    _check(torch.equal(k2_lib()[:bins], counts[0].to(torch.int64)),
+           "torch.bincount disagrees with K2 on the long row")
+
+    def seg_lib():
+        return torch.bincount(seg.view(-1), minlength=bins)
+    k2_runs = cuda_ms_batches(lambda: tdev.histogram(flat, bins))
+    seg_runs = cuda_ms_batches(lambda: tdev.histogram(seg, bins))
+    k1_runs = cuda_ms_batches(lambda: tdev.predict_residual(q, g, lo, hi))
+    k12 = {
+        "predict_residual_long_row": {
+            "file": "predict_residual.cu",
+            "replaces": "tpudraco/ops/pallas_kernels.py:174",
+            "shape": [1, V, 3], "launches": launches_r["predict_residual"],
+            "max_abs_err": k1_err, "ms": k1_runs["median"],
+            "ms_runs": k1_runs,
+            "plain_ms": cuda_ms(lambda: tdev.predict_residual_ref(
+                q, g, lo, hi), 5),
+            "kernel_only_ms": kernel_only_ms(
+                lambda: tdev.predict_residual(q, g, lo, hi),
+                "predict_gather_kernel", reps=10),
+            "library_ms": None,
+            **bound(nbytes(q, lo, hi, sym, *g.values()), 12 * sym.numel())},
+        "histogram_long_row": {
+            "file": "histogram.cu",
+            "replaces": "tpudraco/ops/pallas_kernels.py:71",
+            "shape": [1, int(flat.shape[1]), bins], "splits": splits,
+            "launches": launches_r["histogram"], "max_abs_err": k2_err,
+            "ms": k2_runs["median"], "ms_runs": k2_runs,
+            "plain_ms": cuda_ms(lambda: tdev.bincount_kernel(flat, bins), 5),
+            "kernel_only_ms": kernel_only_ms(
+                lambda: tdev.histogram(flat, bins), "histogram_smem_kernel",
+                reps=10),
+            "library_ms": cuda_ms(k2_lib, 20),
+            "one_block_ms": one_block["median"],
+            "one_block_ms_runs": one_block,
+            "one_block_kernel_only_ms": one_block_alone,
+            "wide_bins": wide, "wide_ms": cuda_ms(
+                lambda: tdev.histogram(rnd, wide), 10),
+            "wide_one_block_ms": one_block_wide,
+            "wide_splits": tdev.histogram_splits(1, flat.shape[1], wide,
+                                                sms),
+            "wide_max_abs_err": k2_wide_err,
+            **bound(nbytes(flat, counts), 2 * flat.numel())},
+        "histogram_chunk_row": {
+            "file": "histogram.cu",
+            "replaces": "tpudraco/ops/pallas_kernels.py:71",
+            "shape": [1, int(seg.shape[1]), bins],
+            "splits": tdev.histogram_splits(1, seg.shape[1], bins, sms),
+            "launches": launches_c["histogram"], "max_abs_err": k2_seg_err,
+            "ms": seg_runs["median"], "ms_runs": seg_runs,
+            "plain_ms": cuda_ms(lambda: tdev.bincount_kernel(seg, bins), 10),
+            "kernel_only_ms": kernel_only_ms(
+                lambda: tdev.histogram(seg, bins), "histogram_smem_kernel",
+                reps=10),
+            "library_ms": cuda_ms(seg_lib, 20),
+            **bound(nbytes(seg) + 4 * bins, 2 * seg.numel())}}
+    for e in k12.values():
+        e["share_of_bound"] = e["bound_ms"] / e["ms"]
+    h = k12["histogram_long_row"]
+    print(f"phase 12.4: K1 at (1, {V}, 3) (direct gather) and K2 at (1, "
+          f"{flat.shape[1]}) {bins} bins on {splits} blocks, at {wide} bins "
+          f"(global) and at a segment's (1, {seg.shape[1]}) equal their "
+          f"twins; K2 {h['ms']:.4f} ms (alone {h['kernel_only_ms']:.4f}) "
+          f"against {h['one_block_ms']:.4f} (alone "
+          f"{h['one_block_kernel_only_ms']:.4f}) on one block, bound "
+          f"{h['bound_ms']:.4f}, torch.bincount {h['library_ms']:.4f}, wide "
+          f"{h['wide_ms']:.4f} against {h['wide_one_block_ms']:.4f}; K1 "
+          f"{k12['predict_residual_long_row']['ms']:.4f} ms (alone "
+          f"{k12['predict_residual_long_row']['kernel_only_ms']:.4f}), bound "
+          f"{k12['predict_residual_long_row']['bound_ms']:.4f}")
+
+    # 12.5: the chunk quantize on the card against numpy, bit for bit:
+    # the mesh's rows against its own range, and edge values (k + .5
+    # over several scales, phase 8's spread values) against theirs
+    def numpy_rows(rows, mins, delta, bits):
+        diff = (rows - mins).astype(np.float32)
+        norm = diff if delta == 0 else (diff / delta).astype(np.float32)
+        prod = (norm * np.float32((1 << bits) - 1)).astype(np.float32)
+        return (prod + np.float32(0.5)).astype(np.float32).astype(np.int32)
+    finite = fa[np.isfinite(fa) & (np.abs(fa) < 1e30)]
+    cases = [("mesh rows", pos[0], BITS), ("mesh rows", pos[0], 16)]
+    for bits in (11, 14, 16):
+        top = np.float32((1 << bits) - 1)
+        cases.append((f"k + .5 at {bits} bits", np.concatenate(
+            [half_k[half_k < top], [top]]).astype(np.float32)[:, None], bits))
+    cases.append(("phase 8 values", finite[:, None].astype(np.float32), 16))
+    quant = []
+    for name, rows, bits in cases:
+        mins = np.minimum(rows.min(axis=0), np.float32(0)).astype(np.float32)
+        maxs = np.maximum(rows.max(axis=0), np.float32(0)).astype(np.float32)
+        delta = np.float32(np.max(maxs - mins))
+        want = numpy_rows(rows, mins, delta, bits)
+        rows_dev = torch.from_numpy(np.ascontiguousarray(rows)).to(dev)
+        mins_dev = torch.from_numpy(mins).to(dev)
+        got = tdev.quantize_rows_kernel(rows_dev, mins_dev,
+                                        torch.tensor(delta, device=dev), bits)
+        # the same formula dividing by a CPU scalar (a reciprocal multiply
+        # on the card): what the rule against it protects
+        scalar = (((rows_dev - mins_dev) / float(delta))
+                  * float((1 << bits) - 1) + 0.5).to(torch.int32)
+        quant.append({"case": name, "values": int(rows.size), "bits": bits,
+                      "mismatches": int((got.cpu().numpy() != want).sum()),
+                      "cpu_scalar_divisor_mismatches": int(
+                          (scalar.cpu().numpy() != want).sum())})
+    q_res, mins_r, dm_r = tdev.quantize_kernel(
+        torch.from_numpy(pos).to(dev), BITS)
+    hq, hmins, hdm = tbatch.quantize_positions_host(pos, BITS)
+    resident_ok = (np.array_equal(q_res.cpu().numpy(), hq)
+                   and np.array_equal(mins_r.cpu().numpy().view(np.int32),
+                                      hmins.view(np.int32))
+                   and np.array_equal(dm_r.cpu().numpy().view(np.int32),
+                                      hdm.view(np.int32)))
+    one["quantize_vs_numpy"] = quant
+    _check(all(c["mismatches"] == 0 for c in quant) and resident_ok,
+           f"the card's quantize differs from numpy: {quant}, resident "
+           f"{resident_ok}")
+    print(f"phase 12.5: quantize_rows_kernel on the card equals numpy bit "
+          f"for bit in every case "
+          f"{[(c['case'], c['bits'], c['values']) for c in quant]}, and "
+          f"quantize_kernel equals the host quantize on the mesh; dividing "
+          f"by a CPU scalar instead would miss "
+          f"{[c['cpu_scalar_divisor_mismatches'] for c in quant]}")
+    one["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 12: {one['phase_s']:.1f} s")
+    return one, k12
 
 
 def _host_rans_encode(coder, dist, lane) -> bytes:

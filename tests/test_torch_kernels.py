@@ -387,3 +387,54 @@ def test_default_attribute_set_round_trip_on_the_card(cuda):
         ref = decode(blob)
         assert all(np.array_equal(a.values, b.values)
                    for a, b in zip(got.attributes, ref.attributes))
+
+
+@pytest.mark.parametrize("B,N,bins", [(1, 3 * (1 << 20), 4096),
+                                      (1, 98_304, 4096),
+                                      (3, 1_000_003, 4096),
+                                      (1, 3 * (1 << 20), 1 << 17),
+                                      (2, 777_777, 1 << 17)])
+def test_histogram_long_rows_match_twin(cuda, B, N, bins):
+    """K2 with a row spread over several blocks (the single-mesh routes'
+    shapes, odd tails, and bins past shared memory) equals its twin."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert tdev.histogram_splits(B, N, bins, sms) > 1
+    rng = np.random.default_rng(N)
+    # residual-like symbols: most near zero, some out of range
+    sym = np.abs(rng.laplace(0, 3, size=(B, N))).astype(np.int32) * 2
+    sym[:, ::97] = rng.integers(-5, bins + 5, size=sym[:, ::97].shape)
+    sym = torch.from_numpy(sym).to(cuda)
+    n0 = tdev.histogram.n_launches
+    got = tdev.histogram(sym, bins)
+    torch.cuda.synchronize()
+    assert tdev.histogram.n_launches == n0 + 1
+    assert torch.equal(got, tdev.bincount_kernel(sym, bins))
+
+
+@pytest.mark.parametrize("bins", [4096, 1 << 17])
+def test_histogram_empty_batch(cuda, bins):
+    """K2 on a (0, N) batch returns an empty (0, bins) result and launches
+    nothing."""
+    n0 = tdev.histogram.n_launches
+    got = tdev.histogram(torch.zeros((0, 1000), dtype=torch.int32,
+                                     device=cuda), bins)
+    assert got.shape == (0, bins) and got.dtype == torch.int32
+    assert tdev.histogram.n_launches == n0
+
+
+def test_single_mesh_routes_on_the_card(cuda):
+    """encode_mesh_device (one K1 and one K2 launch, positions, normals
+    and UVs on the card) and encode_mesh_device_chunked on a 256 x 256
+    grid give encode()'s bytes."""
+    pos, faces = torchdraco.make_mesh_batch(1, 256, seed=2)
+    nrm, uvs = torchdraco.make_normal_uv_batch(pos, 256, 3)
+    m3 = torchdraco.build_meshes(pos, faces, nrm, uvs)[0]
+    m1 = torchdraco.build_meshes(pos, faces)[0]
+    enc = tbatch.BatchEncoder()
+    k1, k2 = tdev.predict_residual.n_launches, tdev.histogram.n_launches
+    assert enc.encode_mesh_device(m3) == encode(m3)
+    assert (tdev.predict_residual.n_launches - k1,
+            tdev.histogram.n_launches - k2) == (1, 1)
+    assert enc.n_host_attributes == 0
+    assert enc.encode_mesh_device_chunked(m1, chunk=1 << 13) == encode(m1)
+    assert enc.encode_mesh_device(m1) == encode(m1)

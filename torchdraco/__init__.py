@@ -12,7 +12,10 @@ PyTorch twin:
   ops/device.py             K1 predict_residual, K2 histogram (fused step)
   ops/rans_lanes.py         K3 rans_words_scan, K4 rans_scan_dense (the
                             multi-lane rANS coder), D1 rans_decode_lanes
-  parallel/batch.py         BatchEncoder.encode_meshes_device
+  parallel/batch.py         BatchEncoder.encode_meshes_device, and for
+                            one large mesh encode_mesh (host plane),
+                            encode_mesh_device (resident),
+                            encode_mesh_device_chunked (streaming)
   parallel/decode_batch.py  BatchDecoder.decode_blobs_shared_topology
 
 and the NORMAL and TEX_COORD chains of both, plain functions on tensors
@@ -27,9 +30,15 @@ from __future__ import annotations
 import numpy as np
 
 
-def make_mesh_batch(batch: int, n: int, seed: int = 0):
+def make_mesh_batch(batch: int, n: int, seed: int = 0, fan: int = 0):
     """A batch of n x n grid meshes with shared topology: (positions
-    (batch, n*n, 3) float32, faces (F, 3) int64)."""
+    (batch, V, 3) float32, faces (F, 3) int64), V = n*n. ``fan`` > 0 adds
+    one vertex (V = n*n + 1) joined to the first fan + 1 vertices of the
+    first row by ``fan`` triangles, as a CAD tessellation fans a cap: a
+    vertex of valence ``fan`` (at most n - 1), which sets the width of the
+    normal rings."""
+    if not 0 <= fan < n:
+        raise ValueError(f"fan must lie in [0, {n - 1}], got {fan}")
     rng = np.random.RandomState(seed)
     xs, ys = np.meshgrid(np.arange(n, dtype=np.float32),
                          np.arange(n, dtype=np.float32))
@@ -42,6 +51,11 @@ def make_mesh_batch(batch: int, n: int, seed: int = 0):
             a = i * n + j
             faces.append([a, a + 1, a + n])
             faces.append([a + 1, a + n + 1, a + n])
+    if fan:
+        apex = np.float32([fan / 2, -1, 0]) + rng.rand(batch, 1, 3).astype(
+            np.float32)
+        positions = np.concatenate([positions, apex], axis=1)
+        faces += [[j + 1, j, n * n] for j in range(fan)]
     return positions, np.asarray(faces, dtype=np.int64)
 
 

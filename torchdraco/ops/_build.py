@@ -44,7 +44,7 @@ _SIGNATURES = {
                                             _I32, _P],
     "tdr_predict_residual_i32": [_P] * 10 + [_P, _I64, _I64, _I64, _I32,
                                             _I32, _P],
-    "tdr_histogram": [_P, _I64, _I64, _I32, _P, _I32, _P],
+    "tdr_histogram": [_P, _I64, _I64, _I32, _P, _I32, _I32, _P],
     "tdr_rans_words": [_P, _P, _P, _I64, _P, _P, _I64, _I64, _I64, _P, _P,
                        _P],
     "tdr_rans_dense": [_P, _P, _I32, _P, _I64, _I64, _I32, _P, _P, _P, _P,

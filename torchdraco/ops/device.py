@@ -1,10 +1,12 @@
 """The fused encode step on tensors: parallelogram predict, wrapped
-difference, zigzag and histogram, batched over meshes sharing a topology.
+difference, zigzag and histogram, batched over meshes sharing a topology,
+and the float side of the single-mesh routes (quantize, the chunk passes).
 
 Counterpart of ``tpudraco/ops/device.py``. The plain functions
-(``zigzag_kernel`` ... ``encode_step_from_q``) are integer PyTorch twins of
-the JAX functions of the same names; they are the spec for the two CUDA
-kernels below and the path a CPU tensor takes:
+(``zigzag_kernel`` ... ``encode_step_from_q``, ``quantize_kernel`` ...
+``unpack12_kernel``) are PyTorch twins of the JAX functions of the same
+names; the integer ones are the spec for the two CUDA kernels below and
+the path a CPU tensor takes:
 
 - ``predict_residual`` (K1, ``csrc/predict_residual.cu``) replaces the
   Pallas ``predict_matmul_pallas`` plus the residual tail of
@@ -15,9 +17,17 @@ A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches its kernel or raises. Each counts its launches in ``n_launches``.
 Symbols are int32 here (the JAX package returns the same values as uint32;
 torch has no arithmetic on uint32).
+
+Every float step is a separate eager ``/``, ``*`` or ``+``, each correctly
+rounded on both devices (never ``torch.compile``, ``addcmul`` or another
+fused form: a multiply-add rounds once and moves values on .5 boundaries,
+``tpudraco/ops/device.py:201-206``), and a divisor is always a tensor on
+the dividend's device, broadcast to its shape (``_div``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -26,6 +36,12 @@ from . import _build
 # the largest bin count whose int32 bins fit a Hopper block's 227 KB of
 # dynamic shared memory (232,448 bytes); above it K2 adds into global memory
 HIST_SMEM_MAX_BINS = 232448 // 4
+# K2 spreads one row over several blocks when the rows alone cannot fill
+# the card: it aims at HIST_BLOCKS_PER_SM blocks on each of the device's
+# SMs, and gives a block at least HIST_MIN_SLICE symbols, and at least 4
+# for every shared-memory bin it must zero and flush into the output
+HIST_BLOCKS_PER_SM = 2
+HIST_MIN_SLICE = 8192
 # K1's shared-memory kernel keeps a mesh's q row and a staging tile of
 # symbols in dynamic shared memory. Up to this many bytes a block, two
 # blocks fit an SM's 227 KB; a mesh past it takes the direct-gather kernel
@@ -211,9 +227,30 @@ def predict_residual(q: torch.Tensor, gathers: dict, vmin: torch.Tensor,
 predict_residual.n_launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def histogram_splits(B: int, N: int, num_bins: int, sms: int) -> int:
+    """Blocks that K2 gives each of B > 0 rows of N symbols on a card of
+    ``sms`` SMs: 1 where the rows fill it (B >= HIST_BLOCKS_PER_SM * sms,
+    the batch path's 512 meshes on an H100's 132), else enough to reach
+    about that many blocks, each with at least HIST_MIN_SLICE symbols and,
+    where the bins are in shared memory, 4 symbols a bin."""
+    fill = HIST_BLOCKS_PER_SM * sms
+    if B >= fill:
+        return 1
+    per_block = HIST_MIN_SLICE
+    if num_bins <= HIST_SMEM_MAX_BINS:
+        per_block = max(per_block, 4 * num_bins)
+    return max(1, min(-(-fill // B), N // per_block))
+
+
 def histogram(symbols: torch.Tensor, num_bins: int) -> torch.Tensor:
     """K2: (B, num_bins) int32 per-row counts of (B, N) int32 symbols;
-    out-of-range symbols are dropped."""
+    out-of-range symbols are dropped. On CUDA a row runs on
+    ``histogram_splits`` blocks, chosen from the shape and the SM count."""
     if symbols.device.type == "cpu":
         return bincount_kernel(symbols, num_bins)
     _require(symbols.device.type == "cuda",
@@ -223,14 +260,19 @@ def histogram(symbols: torch.Tensor, num_bins: int) -> torch.Tensor:
              "symbols must be (B, N) contiguous int32")
     _require(0 < num_bins < (1 << 31), f"bad num_bins {num_bins}")
     B, N = symbols.shape
-    use_smem = num_bins <= HIST_SMEM_MAX_BINS
-    alloc = torch.empty if use_smem else torch.zeros
-    out = alloc((B, num_bins), dtype=torch.int32, device=symbols.device)
     if B == 0:
-        return out
+        return torch.empty((0, num_bins), dtype=torch.int32,
+                           device=symbols.device)
+    use_smem = num_bins <= HIST_SMEM_MAX_BINS
+    splits = histogram_splits(B, N, num_bins,
+                              _sm_count(symbols.device.index))
+    # one block a row stores its bins; split rows and global bins add
+    # into a zeroed row
+    alloc = torch.empty if use_smem and splits == 1 else torch.zeros
+    out = alloc((B, num_bins), dtype=torch.int32, device=symbols.device)
     lib = _build.load()
     rc = lib.tdr_histogram(symbols.data_ptr(), B, N, num_bins,
-                           out.data_ptr(), int(use_smem),
+                           out.data_ptr(), int(use_smem), splits,
                            _cuda_stream(symbols))
     _build.check(rc, "histogram")
     histogram.n_launches += 1
@@ -253,3 +295,152 @@ def encode_step_from_q_cuda(q: torch.Tensor, gathers: dict,
     symbols = predict_residual(q, gathers, vmin, vmax)
     counts = histogram(symbols.view(symbols.shape[0], -1), hist_bins)
     return symbols, counts
+
+
+# ---------------------------------------------------------------------------
+# The float side: quantization and the streaming passes of one large mesh
+# ---------------------------------------------------------------------------
+#
+# The chunked single-mesh route (parallel/batch.py
+# ``encode_mesh_device_chunked``) holds O(chunk) rows on the device:
+#   pass 1: per-vertex-chunk min/max          -> global quantization range
+#   pass 2: per-vertex-chunk quantized min/max -> global residual range
+#   pass 3: per-traversal-chunk rows gathered on the host: quantize,
+#           predict, wrapped difference, zigzag and K2 on the device.
+# Min and max are exact and every per-element formula is the resident
+# one, so the symbols equal the host's.
+
+
+def _div(num: torch.Tensor, den) -> torch.Tensor:
+    """float32 ``num / den`` with ``den`` a float32 tensor on ``num``'s
+    device, broadcast to ``num``'s shape. CUDA divides by a Python or CPU
+    scalar as a multiply by its reciprocal, which can differ from the
+    quotient in the last bit and move a quantized value across .5."""
+    if not isinstance(den, torch.Tensor):
+        den = torch.tensor(den, dtype=torch.float32)
+    den = den.to(device=num.device, dtype=torch.float32)
+    return num / torch.broadcast_to(den, num.shape)
+
+
+def _f32(x: float, device) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+def _quantize_normalized(diff: torch.Tensor, delta_max: torch.Tensor,
+                         bits: int) -> torch.Tensor:
+    """(diff / delta_max, or diff where delta_max is 0) * (2^bits - 1)
+    + 0.5, truncated: three roundings, as the host's float32 numpy.
+    ``delta_max`` broadcasts against ``diff``."""
+    dev = diff.device
+    dz = delta_max == 0
+    safe = torch.where(dz, _f32(1.0, dev), delta_max)
+    normalized = torch.where(dz, diff, _div(diff, safe))
+    prod = normalized * _f32(float((1 << bits) - 1), dev)
+    return (prod + _f32(0.5, dev)).to(torch.int32)
+
+
+def quantize_kernel(values: torch.Tensor, bits: int):
+    """Coordinate-wise quantization of (..., V, N) float32 values (min and
+    max seeded with zero, one delta_max over the components). Returns
+    (q int32, mins (..., N), delta_max (...,))."""
+    v = values.to(torch.float32)
+    zero = _f32(0.0, v.device)
+    mins = torch.minimum(v.amin(dim=-2), zero)
+    maxs = torch.maximum(v.amax(dim=-2), zero)
+    delta_max = (maxs - mins).amax(dim=-1)
+    diff = v - mins[..., None, :]
+    q = _quantize_normalized(diff, delta_max[..., None, None], bits)
+    return q, mins, delta_max
+
+
+def dequantize_kernel(q: torch.Tensor, mins: torch.Tensor,
+                      delta_max: torch.Tensor, bits: int) -> torch.Tensor:
+    """q * (delta_max / (2^bits - 1)) + mins, the product rounded before
+    the sum; q (..., V, N), mins (..., N), delta_max (...,)."""
+    scale = _div(delta_max.to(torch.float32), float((1 << bits) - 1))
+    prod = q.to(torch.float32) * scale[..., None, None]
+    return prod + mins.to(torch.float32)[..., None, :]
+
+
+def unzigzag_kernel(u: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``zigzag_kernel`` for symbols read as uint32 (any
+    integer dtype; the low 32 bits count). Returns int32."""
+    u = u.to(torch.int64) & 0xFFFFFFFF
+    half = (u >> 1).to(torch.int32)
+    return torch.where((u & 1) == 0, half, -half - 1)
+
+
+def minmax_chunk_kernel(pos_chunk: torch.Tensor):
+    """(C, N) float32 -> ((N,) min, (N,) max). Padding rows must replicate
+    a real row so that they cannot move the result."""
+    v = pos_chunk.to(torch.float32)
+    return v.amin(dim=0), v.amax(dim=0)
+
+
+def quantize_rows_kernel(rows: torch.Tensor, mins: torch.Tensor,
+                         delta_max: torch.Tensor, bits: int) -> torch.Tensor:
+    """``quantize_kernel``'s per-element formula against a given range:
+    rows (C, N) float32, mins (N,), delta_max a 0-dim tensor. Returns
+    int32, equal to the resident quantize of the same rows."""
+    diff = rows.to(torch.float32) - mins.to(torch.float32)
+    return _quantize_normalized(diff, delta_max.to(torch.float32), bits)
+
+
+def quantized_range_chunk_kernel(pos_chunk, mins, delta_max, bits: int):
+    """Pass 2: the min and max (0-dim int32) of the chunk's quantized
+    values over all components."""
+    q = quantize_rows_kernel(pos_chunk, mins, delta_max, bits)
+    return q.amin(), q.amax()
+
+
+def encode_step_chunk(cur, nxt, prv, opp, fb, can_para, has_fallback,
+                      active, mins, delta_max, vmin: int, vmax: int,
+                      bits: int, hist_bins: int):
+    """One traversal segment of the fused step. The five (C, N) float32
+    row sets arrive gathered on the host (the vertex of each step, of its
+    next, previous and opposite corners and its fallback), with the
+    (C,) masks; ``active`` marks the rows that are not padding. Returns
+    ((C, N) int32 symbols, (hist_bins,) int32 counts of the active rows):
+    the counts are K2 over the (1, C*N) row on a CUDA tensor, with padding
+    mapped to ``hist_bins``, which K2 drops."""
+    q = [quantize_rows_kernel(r, mins, delta_max, bits)
+         for r in (cur, nxt, prv, opp, fb)]
+    para = q[1] + q[2] - q[3]
+    fallback = torch.where(has_fallback[:, None], q[4],
+                           torch.zeros_like(q[4]))
+    preds = torch.where(can_para[:, None], para, fallback)
+    max_diff = 1 + vmax - vmin
+    max_corr = max_diff // 2
+    min_corr = -max_corr
+    if max_diff % 2 == 0:
+        max_corr -= 1
+    val = q[0] - torch.clamp(preds, vmin, vmax)
+    corr = torch.where(val > max_corr, val - max_diff,
+                       torch.where(val < min_corr, val + max_diff, val))
+    sym = zigzag_kernel(corr)
+    act = active.repeat_interleave(sym.shape[1])
+    flat = torch.where(act, sym.reshape(-1), hist_bins)
+    counts = histogram(flat.view(1, -1), hist_bins)[0]
+    return sym, counts
+
+
+def encode_step(positions: torch.Tensor, gathers: dict, bits: int = 11,
+                hist_bins: int | None = None) -> dict:
+    """The fused step from float32 positions (B, V, C), in plain PyTorch:
+    ``quantize_kernel`` then ``encode_step_from_q``, with the quantization
+    range (mins, delta_max) beside the symbols and counts."""
+    q, mins, delta_max = quantize_kernel(positions, bits)
+    out = encode_step_from_q(q, gathers, bits=bits, hist_bins=hist_bins)
+    return {**out, "mins": mins, "delta_max": delta_max}
+
+
+def unpack12_kernel(lo: torch.Tensor, hb: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``torchdraco.native.pack12``: int32 values from the
+    12-bit layout, the low bytes ``lo`` (B, ...) uint8 and the high
+    nibbles ``hb`` (B, ceil(n/2)) uint8 paired within a row (even index in
+    the low nibble)."""
+    B = lo.shape[0]
+    n = lo[0].numel() if B else 0
+    hi = torch.stack([hb & 0xF, hb >> 4], dim=-1).reshape(B, -1)
+    hi = hi[:, :n].reshape(lo.shape)
+    return lo.to(torch.int32) | (hi.to(torch.int32) << 8)

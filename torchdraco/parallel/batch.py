@@ -1,14 +1,23 @@
-"""Batch encoding of meshes that share one topology, on one device.
+"""Mesh encoding on one device: batches that share a topology, and one
+large mesh on its own.
 
-Counterpart of the batch path of ``tpudraco/parallel/batch.py``: meshes
-are grouped by topology; per group the host runs the connectivity pass once
-and quantizes every mesh (the canonical formula, C++), the quantized values
-go to the device as uint16, the fused step (K1, K2) and the multi-lane rANS
-coder (K3) run there for the position attribute, the NORMAL and TEX_COORD
-attributes run their chains (ops/normals.py, ops/texcoords.py) on the same
-uploaded positions, and the host assembles each ``.drc`` from the cached
-connectivity bytes and the device's payloads. Output bytes are identical to
-the per-mesh host ``encode()`` of ``torchdraco.encode``.
+Counterpart of ``tpudraco/parallel/batch.py``. The batch path
+(``encode_meshes_device``): meshes are grouped by topology; per group the
+host runs the connectivity pass once and quantizes every mesh (the
+canonical formula, C++), the quantized values go to the device as uint16,
+the fused step (K1, K2) and the multi-lane rANS coder (K3) run there for
+the position attribute, the NORMAL and TEX_COORD attributes run their
+chains (ops/normals.py, ops/texcoords.py) on the same uploaded positions,
+and the host assembles each ``.drc`` from the cached connectivity bytes
+and the device's payloads.
+
+The single-mesh routes: ``encode_mesh`` / ``encode_meshes`` (the host
+plane, with the topology cache), ``encode_mesh_device`` (resident: the
+batch path's step at B = 1, one symbol readback, the host's C++ rANS
+coder), ``encode_mesh_device_chunked`` (streaming: O(chunk) rows on the
+device, three passes) and ``_encode_huge``, which picks between the two by
+size. Output bytes are identical to the per-mesh host ``encode()`` of
+``torchdraco.encode`` on every route.
 
 The host helpers (``PreparedTopology`` ... ``quantize_positions_host``) are
 carried over from ``tpudraco/parallel/batch.py``.
@@ -34,15 +43,21 @@ from ..entropy.symbol_coding import DIRECT_CODED, encode_symbols
 from ..models import AttributeType, TableView
 from ..native import topo as native_topo
 from ..ops.gathers import build_parallelogram_gathers
-from ..ops.device import encode_step_from_q_cuda
+from ..ops.device import (
+    default_hist_bins, encode_step_chunk, encode_step_from_q_cuda,
+    minmax_chunk_kernel, quantized_range_chunk_kernel,
+)
 from ..ops.normals import (
-    collect_normal_rings, normal_encode_chain, rings_to_torch,
+    RING_BYTES_PER_SLOT, collect_normal_rings, normal_encode_chain,
+    rings_to_torch,
 )
 from ..ops.rans_lanes import encode_group_entropy_device
 from ..ops.texcoords import (
     collect_uv_gathers, uv_encode_chain, uv_gathers_to_torch,
 )
-from ..shared.prediction import write_normal_flips, write_tex_orientations
+from ..shared.prediction import (
+    ring_width, write_normal_flips, write_tex_orientations,
+)
 from ..shared.sequencer import compute_sequence
 from ..wire.byte_io import ByteWriter
 
@@ -51,11 +66,16 @@ class PreparedTopology:
     """Reusable connectivity state for meshes sharing one topology: the
     connectivity byte blob, the corner tables, per-attribute traversal
     sequences, the per-device gather tensors of the fused step, and the
-    normal rings and UV gathers of the attribute chains."""
+    normal rings and UV gathers of the attribute chains. ``traversal`` and
+    ``single_connectivity`` are the Config's: the connectivity bytes bake
+    them in."""
 
-    def __init__(self, mesh) -> None:
+    def __init__(self, mesh, traversal: int = 0,
+                 single_connectivity: bool = False) -> None:
         w = ByteWriter()
-        eb = EdgebreakerEncoder(mesh.faces, mesh.attributes)
+        eb = EdgebreakerEncoder(mesh.faces, mesh.attributes,
+                                traversal=traversal,
+                                single_connectivity=single_connectivity)
         self.conn_out = eb.encode(w)
         self.conn_bytes = w.getvalue()
         self.sequences: dict[int, list[int]] = {}
@@ -105,6 +125,18 @@ class PreparedTopology:
             self.dev_chain_tables[key] = uv_gathers_to_torch(
                 self.uv_gathers_for(i, num_pos_points), dev)
         return self.dev_chain_tables[key]
+
+    def device_bytes(self) -> int:
+        """Bytes of the tensors this topology holds on devices (the
+        position gathers and the chains' tables)."""
+        return sum(t.numel() * t.element_size()
+                   for tables in (*self.dev_gathers.values(),
+                                  *self.dev_chain_tables.values())
+                   for t in tables.values())
+
+    def drop_device_tables(self) -> None:
+        self.dev_gathers.clear()
+        self.dev_chain_tables.clear()
 
 
 def topology_signature(mesh) -> str:
@@ -314,6 +346,15 @@ def _direct_coded_payload(symbols: np.ndarray) -> bytes:
     return w.getvalue()
 
 
+def _normal_chain_fits(ring: int, bits: int) -> bool:
+    """Whether the device chain codes a NORMAL attribute of ring width
+    ``ring`` beside ``bits``-bit positions: only where no ring
+    intermediate can leave int32 (the reference's headroom rule, kept as
+    the routing rule: which side codes an attribute does not depend on
+    the package)."""
+    return 3 * ring * (1 << (2 * bits + 1)) < (1 << 31)
+
+
 def _device_extra_attribute_entries(meshes, idxs, topo: PreparedTopology,
                                     bits: int, normal_bits: int = 8,
                                     uv_bits: int = 10, device=None,
@@ -345,11 +386,8 @@ def _device_extra_attribute_entries(meshes, idxs, topo: PreparedTopology,
             continue
         if not _attribute_eligible(meshes, idxs, ni, pos_id, 3):
             continue
-        R = max(int(topo.rings_for(ni)["next_pt"].shape[1]), 1)
-        # the device chain runs only where no ring intermediate can leave
-        # int32 (the reference's headroom rule, kept as the routing rule:
-        # which side codes an attribute does not depend on the package)
-        if 3 * R * (1 << (2 * bits + 1)) >= (1 << 31):
+        if not _normal_chain_fits(
+                max(int(topo.rings_for(ni)["next_pt"].shape[1]), 1), bits):
             continue
         normal_idxs.append(ni)
     uv_idxs = [ui for ui, a in enumerate(mesh0.attributes)
@@ -428,24 +466,106 @@ def _device_extra_attribute_entries(meshes, idxs, topo: PreparedTopology,
 
 class BatchEncoder:
     """Encodes meshes with topology-group batching, the POSITION, NORMAL
-    and TEX_COORD attributes on the device. ``cfg`` may differ from the
-    default Config only in quantization depths. ``n_host_attributes``
-    counts the NORMAL and TEX_COORD attributes that a guard of the device
-    chains sent to the host encoder (per mesh and attribute); ``timings``
-    holds the host seconds of the last call by stage (``position_s``: the
+    and TEX_COORD attributes on the device, and single meshes through the
+    host plane or the single-mesh device routes. The device paths take a
+    ``cfg`` that differs from the default Config only in quantization
+    depths; ``encode_mesh`` takes any. ``n_host_attributes`` counts the
+    NORMAL and TEX_COORD attributes that a guard of the device chains sent
+    to the host encoder (per mesh and attribute); ``timings`` holds the
+    host seconds of the last device call by stage (``position_s``: the
     quantize, upload, fused step and rANS coder of the position attribute;
     ``chains_s``: the NORMAL and TEX_COORD chains with their readback and
-    host payloads)."""
+    host payloads; the chunked route's ``pass1_s`` ... ``pass3_s``)."""
 
     # meshes per device call: the group's lanes run in one K3 launch
     DEVICE_CHUNK = 512
+    # Card memory for the tables that topologies keep resident (position
+    # gathers, normal rings, UV gathers), least recently used dropped
+    # first. They cost 169 B a vertex with normals and UVs (int64 ring
+    # indices, ring width 6) and 22 B with positions alone, so 8 GiB keeps
+    # some 48 topologies of 1M vertices, or 12,000 of 64 x 64, and leaves
+    # 71 GB of an 80 GB card to the working set: a 512-mesh chunk peaks at
+    # 1.7 GB, a resident mesh at most RESIDENT_MAX_BYTES.
+    DEV_CACHE_BUDGET = 8 << 30
+    # a lone mesh of CHUNKED_MIN_VERTS << 2 vertices or more is "huge": the
+    # router (not ported yet) sends it to _encode_huge
+    CHUNKED_MIN_VERTS = 1 << 17
+    # _encode_huge keeps a mesh resident while the resident route's
+    # estimated peak (_resident_peak_bytes) stays within RESIDENT_MAX_BYTES,
+    # and streams it in chunks beyond: half of an 80 GB card, beside
+    # DEV_CACHE_BUDGET and the allocator's cache.
+    RESIDENT_MAX_BYTES = 40 << 30
+    # The estimate's terms, above the first-call peaks that chip_smoke.py
+    # phase 12.3 measures (NVIDIA H100 80GB HBM3, 700 W): positions,
+    # gathers and symbols cost RESIDENT_BYTES_PER_VERTEX (46 B a vertex on
+    # a 1024^2 grid); each TEX_COORD attribute RESIDENT_UV_BYTES_PER_VERTEX
+    # (712 B with positions on a 512^2 grid); each NORMAL attribute that
+    # the device chain takes RING_BYTES_PER_SLOT for each of its T x R ring
+    # slots (int64 ring tensors at B = 1, which the chain cannot split; R
+    # is the most corners on one vertex, so one fan or pole vertex sets
+    # it): 155 B a slot on a 512^2 grid with a fan vertex of valence 80,
+    # 3.25 GB, 12.4 KB a vertex, where the plain 1024^2 grid (R = 6) with
+    # normals and UVs peaks at 1.10 GB, 1,051 B a vertex. The chains run
+    # one after the other, so the sum overestimates: by 1.17-1.89x on
+    # those four meshes.
+    RESIDENT_BYTES_PER_VERTEX = 64
+    RESIDENT_UV_BYTES_PER_VERTEX = 768
 
     def __init__(self, cfg=None) -> None:
         self.cfg = cfg
         self.n_host_attributes = 0
-        # host seconds of the last encode_meshes_device call, by stage
+        # host seconds of the last device call, by stage
         self.timings: dict = {}
-        self._topo_cache: dict[str, PreparedTopology] = {}
+        # topology signature (with the traversal and single-connectivity
+        # knobs when a cfg sets them) -> PreparedTopology
+        self._topo_cache: dict = {}
+        # LRU of topologies holding device tables, most recent last
+        self._dev_cache: dict = {}
+
+    def _dev_cache_touch(self, key, topo: PreparedTopology) -> None:
+        """Mark ``topo``'s device tables most recently used and drop the
+        least recent topologies' tables while the total passes
+        DEV_CACHE_BUDGET (the topologies themselves stay cached)."""
+        self._dev_cache.pop(key, None)
+        self._dev_cache[key] = topo
+        total = sum(t.device_bytes() for t in self._dev_cache.values())
+        for old_key in list(self._dev_cache):
+            if total <= self.DEV_CACHE_BUDGET or old_key == key:
+                break
+            old = self._dev_cache.pop(old_key)
+            total -= old.device_bytes()
+            old.drop_device_tables()
+
+    def encode_mesh(self, mesh, cfg=None) -> bytes:
+        """The host plane for one mesh, ``encode(mesh, cfg)``'s bytes, with
+        the connectivity pass cached by topology (``cfg`` None:
+        ``self.cfg``). The cache keys on the traversal kind and the
+        single-connectivity knob too, which the connectivity bytes bake
+        in."""
+        cfg = cfg if cfg is not None else self.cfg
+        key = topology_signature(mesh)
+        if cfg is not None and (cfg.traversal
+                                or cfg.use_single_connectivity):
+            key = (key, cfg.traversal, cfg.use_single_connectivity)
+        topo = self._topo_cache.get(key)
+        if topo is None:
+            topo = PreparedTopology(
+                mesh, traversal=cfg.traversal if cfg is not None else 0,
+                single_connectivity=bool(cfg is not None
+                                         and cfg.use_single_connectivity))
+            self._topo_cache[key] = topo
+        return encode_with_topology(mesh, topo, cfg=cfg)
+
+    def encode_meshes(self, meshes: list) -> list:
+        """``encode_mesh`` for each mesh, with per-mesh isolation: a mesh
+        that fails yields None and does not stop the others."""
+        out: list[bytes | None] = []
+        for m in meshes:
+            try:
+                out.append(self.encode_mesh(m))
+            except Exception:
+                out.append(None)
+        return out
 
     def encode_meshes_device(self, meshes: list, bits: int | None = None,
                              entropy: str = "device",
@@ -544,4 +664,251 @@ class BatchEncoder:
                 t["position_s"] += t1 - t0
                 t["chains_s"] += t2 - t1
                 t["assembly_s"] += clock() - t2
+            self._dev_cache_touch(sig, topo)
         return out
+
+    # ------------------------------------------------------------------
+    # one large mesh
+
+    def _topo_for(self, mesh):
+        """(cache key, PreparedTopology) of ``mesh`` under the device
+        routes' connectivity (the default: their cfg holds depths only)."""
+        key = topology_signature(mesh)
+        topo = self._topo_cache.get(key)
+        if topo is None:
+            topo = self._topo_cache[key] = PreparedTopology(mesh)
+        return key, topo
+
+    def _resolve_depths(self, bits: int | None) -> dict:
+        """The single-mesh device routes' depths: ``bits`` (-qp) when given,
+        the rest from ``self.cfg``, which must hold quantization depths
+        only (other overrides cannot ride the precomputed positions)."""
+        dflt = _device_quant_bits(self.cfg)
+        if dflt is None:
+            raise ValueError(
+                "BatchEncoder.cfg goes beyond the device routes' config "
+                "space (quantization depths only); encode this mesh with "
+                "encode_mesh instead")
+        if bits is not None:
+            dflt["bits"] = bits
+        if not _depths_in_range(**dflt):
+            raise ValueError(f"quantization depths out of range {dflt}")
+        return dflt
+
+    def _assemble_precomputed(self, mesh, topo: PreparedTopology,
+                              symbols: np.ndarray, vmin: int, vmax: int,
+                              bits: int, extra_pre: dict | None = None,
+                              port: dict | None = None) -> bytes:
+        """The .drc of one mesh from its position symbols (T, C) and
+        residual range: the host's C++ rANS coder (DIRECT_CODED) codes the
+        symbols, ``extra_pre`` adds device entries of other attributes,
+        ``port`` (``port_meta``, ``port_values``) the host quantize's
+        result, which the assembly then does not redo. Attributes without
+        an entry are coded by the host encoder inside the assembly, at
+        ``self.cfg``'s depths."""
+        w = ByteWriter()
+        encode_symbols(symbols.astype(np.uint64).ravel(), symbols.shape[-1],
+                       DIRECT_CODED, w)
+        meta = ByteWriter()
+        meta.write_u32(int(vmin) & 0xFFFFFFFF)
+        meta.write_u32(int(vmax) & 0xFFFFFFFF)
+        pos_idx = next(j for j, a in enumerate(mesh.attributes)
+                       if a.att_type == AttributeType.POSITION)
+        dflt = self._resolve_depths(bits)
+        cfg = _merged_quant_cfg(self.cfg, bits, dflt["normal_bits"],
+                                dflt["uv_bits"])
+        pre = {pos_idx: {"payload": w.getvalue(),
+                         "xform_meta": bytes(meta.getvalue()), **(port or {})}}
+        pre.update(extra_pre or {})
+        return encode_with_topology(mesh, topo, cfg=cfg, precomputed=pre)
+
+    def encode_mesh_device(self, mesh, bits: int | None = None,
+                           device=None) -> bytes:
+        """One mesh with its positions and gathers resident on ``device``
+        (None: the card; ``"cpu"`` runs the kernels' plain twins): the host
+        C++ quantize, one uint16 upload, K1 and K2 at B = 1, the NORMAL and
+        TEX_COORD chains on the same uploaded positions, one readback of
+        the symbols (uint16 where ``bits + 1 <= 16``), and the host's C++
+        rANS coder and assembly. The position symbols form one rANS
+        stream, which one lane of K3 would code at one dependent step a
+        symbol; the host coder does it. Output equals ``encode()``; a guard
+        of the chains is counted in ``n_host_attributes``; errors raise."""
+        depths = self._resolve_depths(bits)
+        bits = depths["bits"]
+        dev = resolve(device)
+        t = self.timings = dict.fromkeys(
+            ("topology_s", "position_s", "chains_s", "assembly_s"), 0.0)
+        clock = time.perf_counter
+        t0 = clock()
+        key, topo = self._topo_for(mesh)
+        pos_att = mesh.position_attribute()
+        pos = np.ascontiguousarray(pos_att.values, np.float32)[None]
+        t1 = clock()
+        dev_c = device_encode_group(pos, topo, pos_att, bits=bits,
+                                    device=dev)
+        syms = dev_c["symbols"][0]
+        if bits + 1 <= 16:  # zigzag symbols < 2^(bits+1): half the bytes
+            syms = syms.to(torch.uint16)
+        n_counted = int(dev_c["counts"].sum())
+        syms = syms.cpu().numpy()
+        if n_counted != syms.size:
+            raise RuntimeError(f"histogram lost symbols: {n_counted} of "
+                               f"{syms.size} counted")
+        t2 = clock()
+        extra = _device_extra_attribute_entries(
+            [mesh], [0], topo, bits=bits, normal_bits=depths["normal_bits"],
+            uv_bits=depths["uv_bits"], device=dev, q_pos=dev_c["q_dev"])
+        pre = extra.get(0, {})
+        self.n_host_attributes += sum(
+            1 for j, a in enumerate(mesh.attributes)
+            if a.att_type in _CHAIN_TYPES and j not in pre)
+        t3 = clock()
+        port = {"port_meta": dev_c["mins"][0].astype("<f4").tobytes()
+                + dev_c["delta_max"][:1].astype("<f4").tobytes()
+                + bytes([bits]),
+                "port_values": dev_c["q"][0]}
+        blob = self._assemble_precomputed(
+            mesh, topo, syms, int(dev_c["vmin"][0]), int(dev_c["vmax"][0]),
+            bits, extra_pre=pre, port=port)
+        self._dev_cache_touch(key, topo)
+        t.update(topology_s=t1 - t0, position_s=t2 - t1, chains_s=t3 - t2,
+                 assembly_s=clock() - t3)
+        return blob
+
+    def encode_mesh_device_chunked(self, mesh, bits: int | None = None,
+                                   chunk: int = 1 << 15,
+                                   device=None) -> bytes:
+        """One mesh streamed through ``device`` (None: the card; ``"cpu"``
+        runs the plain twins) ``chunk`` rows at a time, so that the device
+        holds O(chunk) whatever the mesh: pass 1 takes the float range
+        over vertex chunks (padded by repeating a real row), pass 2 the
+        range of the quantized values, pass 3 runs traversal segments,
+        their rows gathered on the host, through ``encode_step_chunk``
+        (quantize, predict, wrapped difference, zigzag, K2) and reads each
+        segment's symbols back. The host's C++ rANS coder and the assembly
+        follow; the NORMAL and TEX_COORD attributes of this route are
+        coded by the host inside the assembly. Output equals
+        ``encode()``; errors raise."""
+        bits = self._resolve_depths(bits)["bits"]
+        dev = resolve(device)
+        if chunk < 1:
+            raise ValueError(f"chunk must be positive, got {chunk}")
+        clock = time.perf_counter
+        t = self.timings = {}
+        t0 = clock()
+        _, topo = self._topo_for(mesh)
+        pos_att = mesh.position_attribute()
+        pos = np.ascontiguousarray(pos_att.values, dtype=np.float32)
+        g = topology_gathers_np(topo, pos_att)
+        V, N = pos.shape
+        T = len(g["order"])
+        t1 = clock()
+        t["topology_s"] = t1 - t0
+
+        def vertex_chunks():
+            for c0 in range(0, V, chunk):
+                rows = pos[c0:c0 + chunk]
+                if len(rows) < chunk:  # pad by repeating a real row
+                    rows = np.concatenate(
+                        [rows, np.broadcast_to(pos[:1],
+                                               (chunk - len(rows), N))])
+                yield torch.from_numpy(rows).to(dev)
+
+        # pass 1: the float range (exact reduces, float32 throughout, the
+        # zero-seeded range of quantize_kernel)
+        lo = torch.full((N,), float("inf"), dtype=torch.float32, device=dev)
+        hi = torch.full((N,), float("-inf"), dtype=torch.float32,
+                        device=dev)
+        for rows in vertex_chunks():
+            mn, mx = minmax_chunk_kernel(rows)
+            lo, hi = torch.minimum(lo, mn), torch.maximum(hi, mx)
+        zero = np.float32(0)
+        mins = np.minimum(lo.cpu().numpy(), zero).astype(np.float32)
+        maxs = np.maximum(hi.cpu().numpy(), zero).astype(np.float32)
+        if V and not (np.isfinite(mins).all() and np.isfinite(maxs).all()):
+            raise ValueError("attribute POSITION contains non-finite values "
+                             "(NaN/inf); refusing to quantize")
+        delta_max = np.float32(np.max((maxs - mins).astype(np.float32)))
+        d_mins = torch.from_numpy(mins).to(dev)
+        d_delta = torch.from_numpy(np.asarray(delta_max)).to(dev)
+        t2 = clock()
+
+        # pass 2: the range of the quantized values
+        qlo = torch.full((), np.iinfo(np.int32).max, dtype=torch.int32,
+                         device=dev)
+        qhi = torch.full((), np.iinfo(np.int32).min, dtype=torch.int32,
+                         device=dev)
+        for rows in vertex_chunks():
+            a, b = quantized_range_chunk_kernel(rows, d_mins, d_delta, bits)
+            qlo, qhi = torch.minimum(qlo, a), torch.maximum(qhi, b)
+        vmin, vmax = int(qlo), int(qhi)
+        t3 = clock()
+
+        # pass 3: traversal segments, rows gathered on the host
+        hist_bins = default_hist_bins(bits)
+        counts = torch.zeros(hist_bins, dtype=torch.int64, device=dev)
+        masks = {k: np.asarray(g[k], bool) for k in ("can_para",
+                                                     "has_fallback")}
+        sym_parts = []
+        for s0 in range(0, T, chunk):
+            s1 = min(s0 + chunk, T)
+            n_valid = s1 - s0
+
+            def rows_of(idx):
+                r = np.zeros((chunk, N), np.float32)
+                r[:n_valid] = pos[idx[s0:s1]]
+                return torch.from_numpy(r).to(dev)
+
+            def mask_of(m):
+                r = np.zeros(chunk, bool)
+                r[:n_valid] = m[s0:s1]
+                return torch.from_numpy(r).to(dev)
+
+            active = np.zeros(chunk, bool)
+            active[:n_valid] = True
+            sym, cnt = encode_step_chunk(
+                *(rows_of(g[k]) for k in ("order", "next", "prev", "opp",
+                                          "fallback")),
+                mask_of(masks["can_para"]), mask_of(masks["has_fallback"]),
+                torch.from_numpy(active).to(dev), d_mins, d_delta, vmin,
+                vmax, bits=bits, hist_bins=hist_bins)
+            counts += cnt
+            if bits + 1 <= 16:
+                sym = sym.to(torch.uint16)
+            sym_parts.append(sym[:n_valid].cpu().numpy())
+        symbols = (np.concatenate(sym_parts) if sym_parts
+                   else np.zeros((0, N), np.int32))
+        n_counted = int(counts.sum())
+        if n_counted != T * N:
+            raise RuntimeError(f"chunked histogram lost symbols: "
+                               f"{n_counted} of {T * N} counted")
+        t4 = clock()
+        blob = self._assemble_precomputed(mesh, topo, symbols, vmin, vmax,
+                                          bits)
+        t.update(pass1_s=t2 - t1, pass2_s=t3 - t2, pass3_s=t4 - t3,
+                 assembly_s=clock() - t4)
+        return blob
+
+    def _resident_peak_bytes(self, mesh) -> int:
+        """Estimated peak card memory of ``encode_mesh_device`` on
+        ``mesh`` at ``self.cfg``'s depths (see RESIDENT_BYTES_PER_VERTEX)."""
+        bits = self._resolve_depths(None)["bits"]
+        _, topo = self._topo_for(mesh)
+        V = mesh.position_attribute().num_points
+        peak = V * self.RESIDENT_BYTES_PER_VERTEX
+        for i, a in enumerate(mesh.attributes):
+            if a.att_type == AttributeType.TEX_COORD:
+                peak += V * self.RESIDENT_UV_BYTES_PER_VERTEX
+            elif a.att_type == AttributeType.NORMAL:
+                R = ring_width(topo.view_for(i).as_arrays()[1])
+                if _normal_chain_fits(R, bits):
+                    peak += len(topo.sequences[i]) * R * RING_BYTES_PER_SLOT
+        return peak
+
+    def _encode_huge(self, mesh, device=None) -> bytes:
+        """A lone large mesh on ``device``: resident while its estimated
+        peak stays within RESIDENT_MAX_BYTES, streamed in chunks beyond.
+        Errors raise."""
+        if self._resident_peak_bytes(mesh) > self.RESIDENT_MAX_BYTES:
+            return self.encode_mesh_device_chunked(mesh, device=device)
+        return self.encode_mesh_device(mesh, device=device)

@@ -147,7 +147,14 @@ class BatchDecoder:
         ring-predict + inverse-transform batch); "auto" picks device at
         PHASED_NORMALS_MIN_BLOBS matching blobs or a mesh of
         PHASED_NORMALS_MIN_FACES faces. Values are identical either way;
-        a failure of the device phase raises."""
+        a failure of the device phase raises. ``device`` None is the card
+        for the phase too, also with ``entropy="host"``: where "auto"
+        takes the phase and there is no card, the call raises a
+        RuntimeError that names ``normals="host"`` and ``device="cpu"``;
+        it never switches to the host by itself.
+
+        An entry that is not bytes-like, or whose decode fails, yields
+        None and does not stop the group."""
         if entropy not in ("host", "device"):
             raise ValueError(f"entropy must be 'host' or 'device', got "
                              f"{entropy!r}")
@@ -175,7 +182,11 @@ class BatchDecoder:
         out: list = [None] * len(blobs)
         items = []
         for i, blob in enumerate(blobs):
-            if bytes(blob[:conn_end]) != prefix:
+            try:
+                same = bytes(blob[:conn_end]) == prefix
+            except Exception:  # not bytes-like: the entry yields None
+                continue
+            if not same:
                 out[i] = self._host_decode(blob)  # another topology
                 continue
 
@@ -184,19 +195,34 @@ class BatchDecoder:
                     ByteReader(_b, pos=conn_end), conn,
                     normal_collector=collector)
             items.append((i, fn))
-        self._decode_items_with_phase(
-            conn, items, out, self._phased(normals, len(items), conn),
-            device)
+        self._decode_items_with_phase(conn, items, out, normals, device)
         return out
 
-    def _decode_items_with_phase(self, conn, items, out, phased: bool,
+    @staticmethod
+    def _phase_device(normals: str, device) -> torch.device:
+        """The device of the batched normal phase. Where "auto" chose the
+        phase and the card is missing, the error says how to stay off
+        it."""
+        try:
+            return resolve(device)
+        except RuntimeError as e:
+            if normals != "auto":
+                raise
+            raise RuntimeError(
+                f"normals='auto' chose the batched normal phase on the card "
+                f"for this group, and {e}; pass normals='host' to keep the "
+                f"per-blob host chains, or device='cpu'") from e
+
+    def _decode_items_with_phase(self, conn, items, out, normals: str,
                                  device) -> None:
-        """Each item's attribute decode, then the mesh assembly; when
-        ``phased``, with the NORMAL chains deferred by the collector and
-        run as one batch on ``device`` between the two. ``items``: (blob
-        index, callable taking the collector and returning the decoded
-        attribute list); a blob whose own decode raises becomes None, a
-        failure of the batched phase raises."""
+        """Each item's attribute decode, then the mesh assembly; where
+        ``normals`` takes the phase for these items, with the NORMAL
+        chains deferred by the collector and run as one batch on
+        ``device`` between the two. ``items``: (blob index, callable
+        taking the collector and returning the decoded attribute list); a
+        blob whose own decode raises becomes None, a failure of the
+        batched phase raises."""
+        phased = self._phased(normals, len(items), conn)
         deferred: list = []       # (blob idx, att idx, da, payload)
         pending: dict = {}        # blob idx -> decoded attribute list
         for i, fn in items:
@@ -212,7 +238,8 @@ class BatchDecoder:
                 out[i] = None
         if deferred:
             t0 = time.perf_counter()
-            self._fill_deferred_normals(conn, deferred, device)
+            self._fill_deferred_normals(
+                conn, deferred, self._phase_device(normals, device))
             self.timings["normals_s"] = time.perf_counter() - t0
         for i, atts in pending.items():
             try:
@@ -284,7 +311,11 @@ class BatchDecoder:
         streams: dict = {}  # (blob idx, att idx) -> (dist, prec, payload, n)
         matching = []
         for i, blob in enumerate(blobs):
-            if bytes(blob[:conn_end]) != prefix:
+            try:
+                same = bytes(blob[:conn_end]) == prefix
+            except Exception:  # not bytes-like: the entry yields None
+                continue
+            if not same:
                 out[i] = self._host_decode(blob)  # another topology
                 continue
             found: dict = {}
@@ -320,9 +351,7 @@ class BatchDecoder:
                     ByteReader(blobs[_i], pos=conn_end), conn,
                     symbol_source=inject, normal_collector=collector)
             items.append((i, fn))
-        self._decode_items_with_phase(
-            conn, items, out, self._phased(normals, len(matching), conn),
-            device)
+        self._decode_items_with_phase(conn, items, out, normals, device)
         self.timings.update(collect_s=t1 - t0, device_stage_s=t2 - t1,
                             assemble_s=time.perf_counter() - t2)
         return out

@@ -80,6 +80,14 @@ class NoPrediction(BasePrediction):
         return np.zeros(self.n, dtype=np.int64)
 
 
+def ring_width(ctv) -> int:
+    """R of the normal rings over a corner -> vertex map: the most corners
+    on one vertex (1 for a table without vertices)."""
+    ctv = np.asarray(ctv)
+    ctv = ctv[ctv >= 0]
+    return int(np.bincount(ctv).max()) if ctv.size else 1
+
+
 def collect_normal_rings(view: TableView, sequence) -> dict:
     """Per-topology ring precompute for normal prediction: the masked
     leftmost-then-swing-right walk of the scalar predict(), batched.
@@ -108,8 +116,7 @@ def collect_normal_rings(view: TableView, sequence) -> dict:
         res = next_corners(ob) if left else prev_corners(ob)
         return np.where((c >= 0) & (o >= 0), res, NONE)
 
-    counts = np.bincount(ctv[ctv >= 0]) if (ctv >= 0).any() else [1]
-    maxv = int(np.max(counts))
+    maxv = ring_width(ctv)
 
     # leftmost walk (swing left until boundary or full circle)
     cur = seq.copy()
@@ -301,8 +308,7 @@ class MultiParallelogramPrediction(BasePrediction):
             return np.where((c >= 0) & (o >= 0),
                             prev_corners(np.where(o >= 0, o, 0)), NONE)
 
-        counts = np.bincount(ctv[ctv >= 0]) if (ctv >= 0).any() else [1]
-        maxv = int(np.max(counts))
+        maxv = ring_width(ctv)
         rings = np.full((T, maxv), NONE, dtype=np.int64)
         rings[:, 0] = seq
         cur = seq.copy()
