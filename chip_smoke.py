@@ -22,10 +22,18 @@ resident route's peak card memory on that grid and on grids with UVs and
 with one fan vertex against the estimate that the size dispatch
 _encode_huge decides by, the dispatch itself, K1 and K2 at the single
 row's shapes against their twins, and the chunk quantize against numpy
-bit for bit. That the
-port's host
-codec equals tpudraco's is what the CPU tests show
-(tests/test_torch_host_codec.py); this script imports nothing of it.
+bit for bit. Then the corpus entry points from files on disk (phase 13):
+the router's sweep of encode_meshes_device against the host plane, whose
+knobs are printed beside the ones in the code; encode_corpus on the host
+plane, the device plane (counted and traced) and the router, with the
+knobs in the code, over a mixed corpus of OBJ, PLY and GLB files with a
+broken file and a NaN vertex, every .drc equal; a second router pass from
+the decision cache
+on disk; decode_corpus and transcode_corpus on both planes; and the
+torchdraco-corpus CLI in its own process. That the port's host codec
+equals tpudraco's is what the CPU tests show
+(tests/test_torch_host_codec.py, tests/test_torch_corpus.py); this script
+imports nothing of it.
 
     python3 chip_smoke.py
 
@@ -35,9 +43,10 @@ it lists every kernel with its launches on its path, its error against
 its twin, both times, its bound (bytes moved once over 3.35 TB/s, or
 integer operations over 67 Tops/s, whichever is larger) and, for the
 histogram, the time of the one PyTorch call that computes the same
-function; the line before that (``chains``) holds the three chains'
-device times, launches, peak memory and bounds and the end-to-end times of
-phases 10-11. K1's and K2's times are medians of BATCHES batches of 50
+function; the lines before that hold phase 13's walls, sweep and knobs
+(``corpus``), the three chains' device times, launches, peak memory and
+bounds and the end-to-end times of phases 10-11 (``chains``), and phase
+12's (``single_mesh``). K1's and K2's times are medians of BATCHES batches of 50
 launches; K4's twin runs once, over the path's 512 lanes and 512 lanes of
 random (freq, cum) pairs together, which take the kernel's exact path.
 The full report (ptxas resources, every timing run, the device trace
@@ -70,8 +79,36 @@ HUGE_GRID, HUGE_CHUNK = 1024, 1 << 15
 # tessellation's fan cap), which widens every normal ring to FAN slots:
 # the widest ring the device chain takes at -qp 11 is 85
 FAN_GRID, FAN = 512, 80
+# phase 13: the corpus on disk. The batch cell's BATCH meshes with normals
+# and UVs (GLB), CORPUS_GROUPS topologies of CORPUS_GROUP_N meshes of
+# CORPUS_GRID x CORPUS_GRID (PLY), CORPUS_SINGLES single meshes of as many
+# grid sizes (OBJ) and one LONE_GRID x LONE_GRID grid, positions only, above
+# the lone-mesh threshold of the router (PLY); CORPUS_WORKERS file threads.
+# The router's sweep runs encode_meshes_device at 1, 2, 4 ... SWEEP_MAX
+# meshes; the transcode corpus is TRANSCODE_FILES GLBs of 2-4 primitives
+# drawn from TRANSCODE_TOPOLOGIES grids; phase 13.6 runs the CLI with
+# CLI_DEVICE_ARGS (none: the card).
+CORPUS_GROUPS, CORPUS_GROUP_N, CORPUS_GRID = 7, 32, 32
+CORPUS_SINGLES, LONE_GRID, CORPUS_WORKERS = 24, 768, 8
+SWEEP_MAX, SWEEP_HOST_MESHES = 512, 16
+TRANSCODE_FILES, TRANSCODE_TOPOLOGIES, TRANSCODE_POOL = 64, 8, 16
+CLI_DEVICE_ARGS: list = []
+ROUTER_KNOBS = ("MIN_DEVICE_GROUP", "PROBE_SKIP_S", "PROBE_CHUNK")
+# a knob the sweep puts beyond this factor of the code's value is flagged
+# as drifted on the corpus line
+KNOB_DRIFT = 2.0
 OPS = {"predict_residual": 12, "histogram": 2, "rans_words_scan": 30,
        "rans_scan_dense": 30, "rans_decode_lanes": 30}
+
+
+def _busy_us(spans) -> float:
+    """The union of a trace's device intervals ((start, end, ...) in us)."""
+    busy, edge = 0.0, float("-inf")
+    for a, b, *_ in sorted(spans):
+        if b > edge:
+            busy += b - max(a, edge)
+            edge = b
+    return busy
 
 
 def _fail(msg: str) -> None:
@@ -438,11 +475,7 @@ def main() -> int:
             spans.append((e.time_range.start, e.time_range.end))
             by_name[e.name] = by_name.get(e.name, 0.0) + (
                 e.time_range.end - e.time_range.start) / 1e3
-    busy_us, edge = 0.0, float("-inf")
-    for a, b in sorted(spans):  # union of device intervals
-        if b > edge:
-            busy_us += b - max(a, edge)
-            edge = b
+    busy_us = _busy_us(spans)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     report["trace"] = {"wall_ms": prof_wall * 1e3, "device_busy_ms":
                        busy_us / 1e3, "n_device_events": len(spans),
@@ -940,11 +973,7 @@ def main() -> int:
         spans = [(e.time_range.start, e.time_range.end, e.name)
                  for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy, edge = 0.0, float("-inf")
-        for a0, b0, _ in sorted(spans):
-            if b0 > edge:
-                busy += b0 - max(a0, edge)
-                edge = b0
+        busy = _busy_us(spans)
         copies = sum(1 for _, _, name in spans
                      if "memcpy" in name.lower() or "memset" in name.lower())
         return {"wall_ms": wall * 1e3, "busy_ms": busy / 1e3,
@@ -1148,6 +1177,16 @@ def main() -> int:
                            alone["rans_words_scan"] * 1e6 / n_sym)
     errs.update({name: e["max_abs_err"] for name, e in k12.items()})
 
+    # ---- phase 13: the corpus entry points, from files on disk ----------
+    torch.cuda.empty_cache()
+    corpus = _phase13(torch, torchdraco, encode, tdev, trl, tbatch, tdb,
+                      reset_launch_counts, dev, sync, wall_s, smi_line,
+                      meshes, meshes3)
+
+    # the launches of phase 13's counted path: the device plane of
+    # encode_corpus over the mixed corpus, and its decode_corpus
+    corpus_launches = {**corpus["encode"]["launches_manual"],
+                       "rans_decode_lanes": corpus["decode"]["d1_launches"]}
     src = "torchdraco/ops/csrc/"
     table = [
         ("predict_residual", "predict_residual.cu",
@@ -1171,7 +1210,8 @@ def main() -> int:
                 "library_ms": library_ms.get(name),
                 "bytes": bounds[name]["bytes"],
                 "share_of_bound": bounds[name]["bound_ms"] / k[name][0],
-                "kernel_only_ms": alone[name]}
+                "kernel_only_ms": alone[name],
+                "launches_corpus": corpus_launches.get(name, 0)}
                for name, f, rep, counts in table]
     kernels += [{"name": name, "route": "cuda", "source": src + e["file"],
                  "replaces": e["replaces"],
@@ -1185,12 +1225,14 @@ def main() -> int:
            f"a long-row kernel: {k12}")
     print("chip_smoke details: " + json.dumps({**report, "chains": chains,
                                                "single_mesh": single,
+                                               "corpus": corpus,
                                                "kernels": kernels}),
           file=sys.stderr)
     report["run_s"] = time.perf_counter() - t_start
-    print(f"chip_smoke: phases 1-12 in {report['run_s']:.1f} s")
+    print(f"chip_smoke: phases 1-13 in {report['run_s']:.1f} s")
     print(json.dumps({"single_mesh": single}))
     print(json.dumps({"chains": chains}))
+    print(json.dumps({"corpus": corpus}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1459,6 +1501,15 @@ def _phase12(torch, np, torchdraco, encode, tdev, tbatch,
 
     def seg_lib():
         return torch.bincount(seg.view(-1), minlength=bins)
+
+    # the 2^17-bin row: torch.bincount over its in-range values (K2 drops
+    # the rest; the mask is taken once, outside the timing)
+    rnd_in = rnd[(rnd >= 0) & (rnd < wide)].contiguous()
+
+    def wide_lib():
+        return torch.bincount(rnd_in, minlength=wide)
+    _check(torch.equal(wide_lib(), tdev.histogram(rnd, wide)[0].to(
+        torch.int64)), "torch.bincount disagrees with K2 at 2^17 bins")
     k2_runs = cuda_ms_batches(lambda: tdev.histogram(flat, bins))
     seg_runs = cuda_ms_batches(lambda: tdev.histogram(seg, bins))
     k1_runs = cuda_ms_batches(lambda: tdev.predict_residual(q, g, lo, hi))
@@ -1492,6 +1543,12 @@ def _phase12(torch, np, torchdraco, encode, tdev, tbatch,
             "one_block_kernel_only_ms": one_block_alone,
             "wide_bins": wide, "wide_ms": cuda_ms(
                 lambda: tdev.histogram(rnd, wide), 10),
+            "wide_kernel_only_ms": kernel_only_ms(
+                lambda: tdev.histogram(rnd, wide), "histogram_global_kernel",
+                reps=10),
+            "wide_library_ms": cuda_ms(wide_lib, 20),
+            "wide_plain_ms": cuda_ms(
+                lambda: tdev.bincount_kernel(rnd, wide), 5),
             "wide_one_block_ms": one_block_wide,
             "wide_splits": tdev.histogram_splits(1, flat.shape[1], wide,
                                                 sms),
@@ -1520,7 +1577,10 @@ def _phase12(torch, np, torchdraco, encode, tdev, tbatch,
           f"against {h['one_block_ms']:.4f} (alone "
           f"{h['one_block_kernel_only_ms']:.4f}) on one block, bound "
           f"{h['bound_ms']:.4f}, torch.bincount {h['library_ms']:.4f}, wide "
-          f"{h['wide_ms']:.4f} against {h['wide_one_block_ms']:.4f}; K1 "
+          f"{h['wide_ms']:.4f} (alone {h['wide_kernel_only_ms']:.4f}, "
+          f"torch.bincount {h['wide_library_ms']:.4f}, plain "
+          f"{h['wide_plain_ms']:.4f}) against "
+          f"{h['wide_one_block_ms']:.4f}; K1 "
           f"{k12['predict_residual_long_row']['ms']:.4f} ms (alone "
           f"{k12['predict_residual_long_row']['kernel_only_ms']:.4f}), bound "
           f"{k12['predict_residual_long_row']['bound_ms']:.4f}")
@@ -1579,6 +1639,412 @@ def _phase12(torch, np, torchdraco, encode, tdev, tbatch,
     one["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 12: {one['phase_s']:.1f} s")
     return one, k12
+
+
+def _router_knobs(sweep: dict, chunk: int) -> dict:
+    """The router's three knobs from phase 13.2's sweep (rows of B, the
+    device plane's wall with each entropy coder, and B times the host
+    plane's time a mesh), per attribute set:
+    MIN_DEVICE_GROUP: the least B from which the device plane (K3) beats
+    the host plane at every larger B, over the sets, at least 2;
+    PROBE_CHUNK: the least B at which the device plane's time
+    a mesh is within twice its time a mesh at the largest B, over the sets,
+    at most 128; PROBE_SKIP_S: the device plane's wall at PROBE_CHUNK, the
+    cheaper set's. A crossover the sweep never reaches is 2 x chunk."""
+    def least_from(rows, faster):
+        best = None
+        for r in reversed(rows):
+            if not faster(r):
+                break
+            best = r["B"]
+        return best
+
+    never = 2 * chunk
+    cross = [least_from(v["rows"], lambda r: r["device_entropy_s"]
+                        < r["host_plane_s"]) for v in sweep.values()]
+    cross = [c for c in cross if c is not None]
+    probe = 1
+    for v in sweep.values():
+        rows = v["rows"]
+        full = rows[-1]["device_entropy_s"] / rows[-1]["B"]
+        w = next(r["B"] for r in rows
+                 if r["device_entropy_s"] / r["B"] <= 2 * full)
+        probe = max(probe, w)
+    probe = min(probe, 128)
+    skip = min(next(r["device_entropy_s"] for r in v["rows"]
+                    if r["B"] >= probe) for v in sweep.values())
+    return {"MIN_DEVICE_GROUP": max(2, min(cross)) if cross else never,
+            "PROBE_SKIP_S": skip, "PROBE_CHUNK": probe}
+
+
+def _phase13(torch, torchdraco, encode, tdev, trl, tbatch, tdb,
+             reset_launch_counts, dev, sync, wall_s, smi_line, meshes,
+             meshes3):
+    """The corpus entry points on the card, from files on disk: the
+    router's sweep (13.2, run first; its knobs are compared with the
+    code's, which route 13.1 and 13.3), encode_corpus three ways over a
+    mixed corpus (13.1), the router's
+    decisions reused from disk (13.3), decode_corpus (13.4),
+    transcode_corpus (13.5) and the torchdraco-corpus CLI (13.6). Returns
+    the phase's record."""
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+    from torchdraco.io import (DracoTranscoder, load_mesh, save_obj,
+                               save_ply, save_scene_glb)
+    from torchdraco.models.scene import Scene
+    from torchdraco.parallel import transcode_corpus
+    from torchdraco.tools.corpus import ENCODE_EXTS, _expand
+
+    t_phase = time.perf_counter()
+    Enc = tbatch.BatchEncoder
+    knobs0 = {k: getattr(Enc, k) for k in ROUTER_KNOBS}
+    corpus = {"card": smi_line, "workers": CORPUS_WORKERS}
+    counted = (tdev.predict_residual, tdev.histogram, trl.rans_words_scan)
+    root = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
+    try:
+        # 13.2 first: encode_meshes_device at 1 ... SWEEP_MAX meshes with
+        # either coder, against the host plane a mesh (warm)
+        widths = [1 << i for i in range(SWEEP_MAX.bit_length())
+                  if 1 << i <= SWEEP_MAX]
+        sweep = {}
+        for name, ms in (("positions", meshes),
+                         ("positions_normals_uvs", meshes3)):
+            enc = Enc(device=dev)
+            enc.encode_meshes_device(ms[:1])
+            enc.encode_mesh(ms[0])
+            k = min(SWEEP_HOST_MESHES, len(ms))
+            per_mesh = min(wall_s(lambda: [enc.encode_mesh(m)
+                                           for m in ms[:k]])[1]
+                           for _ in range(2)) / k
+            rows = []
+            for B in widths:
+                reps = 2 if B <= 64 else 1
+                got = {}
+                for ent in ("device", "host"):
+                    runs = []
+                    for _ in range(reps):
+                        got[ent], w = wall_s(
+                            lambda: enc.encode_meshes_device(ms[:B],
+                                                             entropy=ent))
+                        runs.append(w)
+                    got[ent + "_s"] = min(runs)
+                _check(got["device"] == got["host"],
+                       f"entropy='host' differs from 'device' at B={B}")
+                rows.append({"B": B, "device_entropy_s": got["device_s"],
+                             "host_entropy_s": got["host_s"],
+                             "host_plane_s": B * per_mesh})
+            sweep[name] = {"host_plane_s_per_mesh": per_mesh, "rows": rows}
+        knobs = _router_knobs(sweep, Enc.DEVICE_CHUNK)
+        drift = sorted(k for k, v in knobs.items()
+                       if not knobs0[k] / KNOB_DRIFT <= v
+                       <= knobs0[k] * KNOB_DRIFT)
+        corpus["sweep"] = sweep
+        corpus["knobs_from_sweep"] = knobs
+        corpus["knobs_in_code"] = knobs0
+        corpus["knobs_drifted"] = drift
+        print(f"phase 13.2 (run first; 13.1 and 13.3 route with the knobs "
+              f"in the code): "
+              f"encode_meshes_device walls s (entropy='device' / 'host') "
+              f"against the host plane (B x a mesh, warm), B = {widths}: "
+              + "; ".join(
+                  f"{name}: host {v['host_plane_s_per_mesh'] * 1e3:.3f} ms "
+                  f"a mesh, " + ", ".join(
+                      f"{r['B']}: {r['device_entropy_s']:.4f} / "
+                      f"{r['host_entropy_s']:.4f} vs "
+                      f"{r['host_plane_s']:.4f}" for r in v["rows"])
+                  for name, v in sweep.items())
+              + f"; knobs from the sweep {knobs}, in the code {knobs0}; "
+              f"drifted beyond {KNOB_DRIFT}x: {drift or 'none'}")
+
+        # 13.1: the mixed corpus, written with the port's writers
+        src = os.path.join(root, "in")
+        os.makedirs(src)
+        _, write_s = wall_s(lambda: _write_corpus(
+            torchdraco, Scene, save_obj, save_ply, save_scene_glb, meshes3,
+            src))
+        inputs = _expand([src], ENCODE_EXTS)
+        n_groups = 1 + CORPUS_GROUPS + CORPUS_SINGLES + 1
+        _check(LONE_GRID ** 2 >= Enc.CHUNKED_MIN_VERTS << 2,
+               "the lone grid is below the router's lone-mesh threshold")
+        _check(len(inputs) <= Enc.DEVICE_CORPUS_WINDOW,
+               "the corpus spans windows")
+        cache = os.path.join(root, "route_cache.json")
+
+        def run(plane, out, enc=None):
+            enc = enc or Enc(use_device=plane, device=dev,
+                             route_cache_path=cache)
+            rep, secs = wall_s(lambda: enc.encode_corpus(
+                inputs, os.path.join(root, out), resume=False,
+                workers=CORPUS_WORKERS))
+            return enc, rep, secs
+
+        _, rep_h, host_s = run(False, "host")
+        # the device plane, counted and traced (the trace costs it about
+        # 5% of its wall): the device's busy time and idle share
+        reset_launch_counts()
+        sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            enc_m, rep_m, manual_s = run(True, "manual")
+        launches_m = {fn.__name__: fn.n_launches for fn in counted}
+        spans = [(e.time_range.start, e.time_range.end)
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = _busy_us(spans)
+        trace_m = {"wall_s": manual_s, "busy_s": busy / 1e6,
+                   "device_events": len(spans),
+                   "idle_share": (1 - busy / 1e6 / manual_s) if spans
+                   else None}
+        enc_a = Enc(use_device="auto", device=dev, route_cache_path=cache)
+        huge_calls = []
+        real_huge = enc_a._encode_huge
+
+        def huge_spy(mesh, device=None):
+            huge_calls.append(mesh.position_attribute().num_points)
+            return real_huge(mesh, device=device)
+        enc_a._encode_huge = huge_spy
+        _, rep_a, auto_s = run("auto", "auto", enc_a)
+
+        def drc_files(out):
+            d = os.path.join(root, out)
+            return {f: open(os.path.join(d, f), "rb").read()
+                    for f in sorted(os.listdir(d)) if f.endswith(".drc")}
+        files = {out: drc_files(out) for out in ("host", "manual", "auto")}
+        _check(len(files["host"]) == rep_h["encoded"] and all(
+            files[o] == files["host"] for o in ("manual", "auto")),
+            "the three encode planes disagree on the .drc files")
+        _check(all(r["encoded"] == rep_h["encoded"]
+                   and r["failed"] == rep_h["failed"]
+                   for r in (rep_m, rep_a)),
+               "the reports disagree on encoded or failed")
+        failed = sorted(os.path.basename(f["path"]) for f in rep_h["failed"])
+        _check(failed == ["b0_nan.ply", "broken.glb", "s00.ply"]
+               and "non-finite" in str(rep_h["failed"]),
+               f"the broken file, the NaN vertex and the collision: "
+               f"{rep_h['failed']}")
+        _check(all(n == n_groups for n in launches_m.values()),
+               f"K1, K2 and K3 launch once per device chunk "
+               f"({n_groups}): {launches_m}")
+        by_name = {os.path.splitext(os.path.basename(p))[0] + ".drc": p
+                   for p in reversed(inputs)}
+        names = sorted(files["manual"])
+        sample = names[::max(1, len(names) // 32)][:32]
+        bad = [n for n in sample
+               if encode(load_mesh(by_name[n])) != files["manual"][n]]
+        _check(not bad, f"corpus blobs differ from encode(): {bad[:5]}")
+        routing = rep_a["routing"]
+        lone = [e for e in routing if e["verts"] == LONE_GRID ** 2]
+        _check(len(routing) == n_groups and len(lone) == 1
+               and lone[0]["plane"] == "device"
+               and huge_calls == [LONE_GRID ** 2],
+               f"the router: {len(routing)} entries for {n_groups} groups, "
+               f"lone {lone}, _encode_huge calls {huge_calls}")
+        mb_in = rep_h["total_in_bytes"] / 1e6
+        mb_out = rep_h["total_out_bytes"] / 1e6
+        corpus["encode"] = {
+            "files": len(inputs), "groups": n_groups, "write_s": write_s,
+            "mb_in": mb_in, "mb_out": mb_out, "host_s": host_s,
+            "manual_s": manual_s, "auto_s": auto_s,
+            "stages_s": {"host": rep_h["stages_s"],
+                         "manual": rep_m["stages_s"],
+                         "auto": rep_a["stages_s"]},
+            "manual_device_stages_s": dict(enc_m.timings),
+            "launches_manual": launches_m, "routing": routing,
+            "trace_manual": trace_m, "failed": rep_h["failed"]}
+        print(f"phase 13.1: encode_corpus over {len(inputs)} files "
+              f"({n_groups} topology groups, {mb_in:.1f} MB in, "
+              f"{mb_out:.2f} MB of .drc out, {CORPUS_WORKERS} workers; "
+              f"written in {write_s:.1f} s): host-only {host_s:.2f} s "
+              f"{rep_h['stages_s']}, use_device=True (traced) "
+              f"{manual_s:.2f} s {rep_m['stages_s']} (the device plane's "
+              f"{ {k: round(v, 3) for k, v in enc_m.timings.items()} }), "
+              f"use_device='auto' "
+              f"{auto_s:.2f} s {rep_a['stages_s']}; every .drc equal across "
+              f"the three, "
+              f"{len(sample)} sampled equal encode(); failed "
+              f"{failed}; launches {launches_m}; routing "
+              f"{[(e['meshes'], e['plane'], e.get('reason', 'probe')) for e in routing if e['meshes'] > 1 or e is lone[0]]}"
+              f"; the lone mesh through _encode_huge; the traced manual "
+              f"run's device busy {busy / 1e6:.3f} s over {len(spans)} "
+              f"device events, idle share {trace_m['idle_share']}")
+
+        # 13.3: the decisions reused by a fresh encoder from the disk
+        enc_b = Enc(use_device="auto", device=dev, route_cache_path=cache)
+        _, rep_b, auto2_s = run("auto", "auto2", enc_b)
+        static = ("cached decision (disk)", "small group",
+                  "single mesh (static)")
+        probed = [e for e in rep_b["routing"]
+                  if "host_s_per_mesh" in e
+                  or not str(e.get("reason", "")).startswith(static)
+                  and not str(e.get("reason", "")).startswith(
+                      "single mesh (measured")]
+        _check(not probed, f"the second auto pass probed: {probed}")
+        _check(drc_files("auto2") == files["auto"],
+               "the second auto pass differs from the first")
+        corpus["reuse"] = {"auto2_s": auto2_s, "auto_s": auto_s,
+                           "host_s": host_s, "routing": rep_b["routing"]}
+        print(f"phase 13.3: a fresh encoder on the same route cache: "
+              f"{len(rep_b['routing'])} groups, reasons "
+              f"{sorted({e['reason'] for e in rep_b['routing']})}, no probe;"
+              f" bytes equal 13.1's; auto {auto_s:.2f} s then "
+              f"{auto2_s:.2f} s against host-only {host_s:.2f} s")
+
+        # 13.4: decode_corpus over 13.1's .drc files, device and host
+        drcs = [os.path.join(root, "manual", n) for n in names]
+        bd = tdb.BatchDecoder()
+        reset_launch_counts()
+        rep_dd, dec_dev_s = wall_s(lambda: bd.decode_corpus(
+            drcs, os.path.join(root, "dec_dev"), fmt="ply",
+            workers=CORPUS_WORKERS, device=dev))
+        d1 = trl.rans_decode_lanes.n_launches
+        rep_dh, dec_host_s = wall_s(lambda: tdb.BatchDecoder().decode_corpus(
+            drcs, os.path.join(root, "dec_host"), fmt="ply",
+            workers=CORPUS_WORKERS, use_device=False))
+
+        def ply_files(out):
+            d = os.path.join(root, out)
+            return {f: open(os.path.join(d, f), "rb").read()
+                    for f in sorted(os.listdir(d)) if f.endswith(".ply")}
+        plys = ply_files("dec_dev")
+        _check(len(plys) == len(drcs) and plys == ply_files("dec_host")
+               and rep_dd["failed"] == [] and rep_dh["failed"] == [],
+               "decode_corpus: the device and host planes disagree")
+        _check(d1 > 0 and bd.n_host_blobs == 0,
+               f"decode_corpus: D1 launches {d1}, host blobs "
+               f"{bd.n_host_blobs}")
+        corpus["decode"] = {"device_s": dec_dev_s, "host_s": dec_host_s,
+                            "stages_s": {"device": rep_dd["stages_s"],
+                                         "host": rep_dh["stages_s"]},
+                            "files": len(drcs), "d1_launches": d1,
+                            "mb_out": sum(len(v) for v in plys.values())
+                            / 1e6}
+        print(f"phase 13.4: decode_corpus of {len(drcs)} .drc files to "
+              f"PLY: device {dec_dev_s:.2f} s {rep_dd['stages_s']} ({d1} "
+              f"D1 launches, 0 host blobs) against host-only "
+              f"{dec_host_s:.2f} s; every file equal")
+
+        # 13.5: transcode_corpus over GLBs of shared primitives
+        tsrc = os.path.join(root, "glb_in")
+        os.makedirs(tsrc)
+        glbs = _write_glb_corpus(torchdraco, Scene, save_scene_glb, tsrc)
+        tin = glbs + [glbs[0], os.path.join(tsrc, "broken.glb")]
+        reset_launch_counts()
+        rep_td, tr_dev_s = wall_s(lambda: transcode_corpus(
+            tin, os.path.join(root, "tr_dev"), device=dev))
+        launches_t = {fn.__name__: fn.n_launches for fn in counted}
+        rep_th, tr_host_s = wall_s(lambda: transcode_corpus(
+            tin, os.path.join(root, "tr_host"), use_device=False))
+
+        def glb_files(out):
+            d = os.path.join(root, out)
+            return {f: open(os.path.join(d, f), "rb").read()
+                    for f in sorted(os.listdir(d)) if f.endswith(".glb")}
+        out_dev = glb_files("tr_dev")
+        one_path = os.path.join(root, "one.glb")
+        DracoTranscoder().transcode_file(glbs[0], one_path)
+        _check(len(out_dev) == len(glbs) and out_dev == glb_files("tr_host")
+               and rep_td["transcoded"] == len(glbs)
+               and len(rep_td["failed"]) == 1,
+               f"transcode_corpus: the planes disagree ({rep_td})")
+        _check(rep_td["encoder_hook_misses"] == 0,
+               f"transcode_corpus: hook misses ({rep_td})")
+        _check(open(one_path, "rb").read()
+               == out_dev[os.path.basename(glbs[0])],
+               "transcode_corpus differs from DracoTranscoder")
+        _check(min(launches_t.values()) > 0
+               and len(set(launches_t.values())) == 1,
+               f"transcode launches {launches_t}")
+        corpus["transcode"] = {
+            "files": len(glbs), "device_s": tr_dev_s, "host_s": tr_host_s,
+            "launches": launches_t, "mb_in": rep_td["total_in_bytes"] / 1e6,
+            "mb_out": rep_td["total_out_bytes"] / 1e6}
+        print(f"phase 13.5: transcode_corpus of {len(glbs)} GLBs (+ a "
+              f"duplicate input and a broken file): device {tr_dev_s:.2f} s "
+              f"(launches {launches_t}, 0 hook misses) against "
+              f"host-only {tr_host_s:.2f} s; every GLB equal, and equal to "
+              f"DracoTranscoder")
+
+        # 13.6: the CLI, with no flags: the card
+        cli_out = os.path.join(root, "cli")
+        proc, cli_s = wall_s(lambda: subprocess.run(
+            [sys.executable, "-m", "torchdraco.tools.corpus", "encode",
+             "-i", src, "-o", cli_out, *CLI_DEVICE_ARGS],
+            capture_output=True, text=True, timeout=600, cwd=ROOT))
+        _check(proc.returncode == 1, f"the CLI exits 1 on the three failed "
+               f"files: rc {proc.returncode}, "
+               f"{proc.stderr[-2000:]}")
+        _check(drc_files("cli") == files["manual"],
+               "the CLI's .drc files differ from 13.1's")
+        corpus["cli_s"] = cli_s
+        print(f"phase 13.6: python -m torchdraco.tools.corpus encode "
+              f"{' '.join(CLI_DEVICE_ARGS) or '(no flags)'}: {cli_s:.2f} s "
+              f"in its own process, rc 1 (the three failed files), every .drc "
+              f"equal 13.1's")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    corpus["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 13: {corpus['phase_s']:.1f} s")
+    return corpus
+
+
+def _write_corpus(torchdraco, Scene, save_obj, save_ply, save_scene_glb,
+                  meshes3, src) -> None:
+    """Phase 13.1's inputs in ``src``: the batch meshes as GLB, the
+    topology groups as PLY, the single meshes as OBJ, the lone grid as
+    PLY, one broken GLB, b0_nan.ply (of group 0's topology, a NaN vertex:
+    it loads, and the encoder refuses it), and s00.ply, whose output name
+    collides with s00.obj's."""
+    for i, m in enumerate(meshes3):
+        sc = Scene()
+        sc.add_mesh(m)
+        save_scene_glb(sc, os.path.join(src, f"a{i:03d}.glb"),
+                       compress=False)
+    for g in range(CORPUS_GROUPS):  # a fan vertex of valence g + 1 each
+        p, f = torchdraco.make_mesh_batch(CORPUS_GROUP_N, CORPUS_GRID,
+                                          SEED + g, fan=g + 1)
+        group = torchdraco.build_meshes(p, f)
+        for i, m in enumerate(group):
+            save_ply(m, os.path.join(src, f"b{g}_{i:02d}.ply"))
+        if g == 0:
+            group[0].position_attribute().values[0, :] = float("nan")
+            save_ply(group[0], os.path.join(src, "b0_nan.ply"))
+    for j in range(CORPUS_SINGLES):
+        p, f = torchdraco.make_mesh_batch(1, 8 + j, SEED + 100 + j)
+        save_obj(torchdraco.build_meshes(p, f)[0],
+                 os.path.join(src, f"s{j:02d}.obj"))
+    p, f = torchdraco.make_mesh_batch(1, LONE_GRID, SEED)
+    save_ply(torchdraco.build_meshes(p, f)[0], os.path.join(src, "lone.ply"))
+    with open(os.path.join(src, "broken.glb"), "wb") as fh:
+        fh.write(b"glTF\x02\x00\x00\x00 not a scene")
+    p, f = torchdraco.make_mesh_batch(1, 9, SEED + 200)
+    save_ply(torchdraco.build_meshes(p, f)[0], os.path.join(src, "s00.ply"))
+
+
+def _write_glb_corpus(torchdraco, Scene, save_scene_glb, src) -> list:
+    """Phase 13.5's GLBs: file i holds 2 + i % 3 primitives, primitive j
+    of topology (i + j) % TRANSCODE_TOPOLOGIES (grids of 16, 17, ...
+    vertices a side, normals and UVs), each drawn from a pool of
+    TRANSCODE_POOL meshes of that topology, so that primitives repeat
+    across files. Returns the paths, and writes a broken GLB beside."""
+    pools = []
+    for t in range(TRANSCODE_TOPOLOGIES):
+        n = 16 + t
+        p, f = torchdraco.make_mesh_batch(TRANSCODE_POOL, n, SEED + 300 + t)
+        nrm, uvs = torchdraco.make_normal_uv_batch(p, n, SEED + 400 + t)
+        pools.append(torchdraco.build_meshes(p, f, nrm, uvs))
+    paths = []
+    for i in range(TRANSCODE_FILES):
+        sc = Scene()
+        for j in range(2 + i % 3):
+            sc.add_mesh(pools[(i + j) % TRANSCODE_TOPOLOGIES]
+                        [(3 * i + j) % TRANSCODE_POOL])
+        path = os.path.join(src, f"t{i:02d}.glb")
+        save_scene_glb(sc, path, compress=False)
+        paths.append(path)
+    with open(os.path.join(src, "broken.glb"), "wb") as fh:
+        fh.write(b"glTF\x02\x00\x00\x00 not a scene")
+    return paths
 
 
 def _host_rans_encode(coder, dist, lane) -> bytes:

@@ -92,6 +92,9 @@ for entropy in ("host", "device"):
                    for x, y in zip(m.attributes, ref.attributes))
 assert "torchdraco.ops.normals" in sys.modules
 assert "torchdraco.ops.texcoords" in sys.modules
+# the corpus entry points, the io copies and the CLIs load too
+import torchdraco.io, torchdraco.parallel.transcode
+import torchdraco.tools.cli, torchdraco.tools.corpus
 foreign = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "tpudraco"))
 print(json.dumps({{"foreign": foreign,
@@ -262,7 +265,7 @@ def test_gathers_to_torch_layout():
 def test_attributes_beyond_position_raise():
     """A mesh with an attribute beyond POSITION no longer raises
     NotImplementedError: it encodes, to encode()'s bytes. What still
-    raises: an entropy mode that is not ported, depths out of range."""
+    raises: an entropy mode that does not exist, depths out of range."""
     from tpudraco.models import AttributeDomain, MeshBuilder
 
     pos, faces = torchdraco.make_mesh_batch(1, 5)
@@ -278,7 +281,7 @@ def test_attributes_beyond_position_raise():
     assert enc.encode_meshes_device([mesh], device="cpu") == [encode(mesh)]
     assert enc.n_host_attributes == 0
     with pytest.raises(ValueError):
-        tbatch.BatchEncoder().encode_meshes_device([], entropy="host")
+        tbatch.BatchEncoder().encode_meshes_device([], entropy="sideways")
     with pytest.raises(ValueError, match="7..16"):
         tbatch.BatchEncoder().encode_meshes_device([mesh], normal_bits=5,
                                                    device="cpu")

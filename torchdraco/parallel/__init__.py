@@ -4,8 +4,9 @@ from .batch import (
     topology_signature,
 )
 from .decode_batch import BatchDecoder
+from .transcode import transcode_corpus
 
 __all__ = ["BatchDecoder", "BatchEncoder", "PreparedTopology",
            "device_encode_group", "encode_with_topology", "gathers_to_torch",
            "quantize_positions_host", "topology_gathers_np",
-           "topology_signature"]
+           "topology_signature", "transcode_corpus"]

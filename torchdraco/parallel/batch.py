@@ -1,15 +1,16 @@
-"""Mesh encoding on one device: batches that share a topology, and one
-large mesh on its own.
+"""Mesh encoding on one device: batches that share a topology, one large
+mesh on its own, and the corpus driver over files on disk.
 
 Counterpart of ``tpudraco/parallel/batch.py``. The batch path
 (``encode_meshes_device``): meshes are grouped by topology; per group the
 host runs the connectivity pass once and quantizes every mesh (the
 canonical formula, C++), the quantized values go to the device as uint16,
 the fused step (K1, K2) and the multi-lane rANS coder (K3) run there for
-the position attribute, the NORMAL and TEX_COORD attributes run their
-chains (ops/normals.py, ops/texcoords.py) on the same uploaded positions,
-and the host assembles each ``.drc`` from the cached connectivity bytes
-and the device's payloads.
+the position attribute (or, with ``entropy="host"``, the symbols come back
+and the host's C++ coder codes each mesh), the NORMAL and TEX_COORD
+attributes run their chains (ops/normals.py, ops/texcoords.py) on the same
+uploaded positions, and the host assembles each ``.drc`` from the cached
+connectivity bytes and the device's payloads.
 
 The single-mesh routes: ``encode_mesh`` / ``encode_meshes`` (the host
 plane, with the topology cache), ``encode_mesh_device`` (resident: the
@@ -19,6 +20,13 @@ device, three passes) and ``_encode_huge``, which picks between the two by
 size. Output bytes are identical to the per-mesh host ``encode()`` of
 ``torchdraco.encode`` on every route.
 
+The corpus: ``encode_corpus`` loads files in bounded windows, encodes each
+window on the device plane (``use_device=True``), on the router
+(``use_device="auto"``: ``encode_meshes_auto`` measures the host plane and
+the device plane per topology group and keeps the decision in memory and
+on disk) or on the host plane (``use_device=False``), with resume and
+per-file error isolation.
+
 The host helpers (``PreparedTopology`` ... ``quantize_positions_host``) are
 carried over from ``tpudraco/parallel/batch.py``.
 """
@@ -27,7 +35,10 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import json
+import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -148,6 +159,36 @@ def topology_signature(mesh) -> str:
         h.update(bytes([a.att_type, a.domain, a.num_components]))
         h.update(np.ascontiguousarray(a.unique_indices()).tobytes())
     return h.hexdigest()
+
+
+def _drop_output_collisions(inputs, out_path_for):
+    """Split ``inputs`` into (kept, collided): an input whose output path
+    an earlier input already claimed (the same basename in two
+    directories, a repeated path) is reported instead of overwriting the
+    earlier result."""
+    seen: dict = {}
+    kept, collided = [], []
+    for p in inputs:
+        o = out_path_for(p)
+        if o in seen:
+            collided.append(p)
+        else:
+            seen[o] = p
+            kept.append(p)
+    return kept, collided
+
+
+def _refused_input(mesh) -> bool:
+    """Whether the host encoder refuses ``mesh`` (``_require_finite``):
+    NaN or inf in a float attribute it quantizes, which is every type
+    but CUSTOM. The device planes would raise for the mesh's whole call,
+    so the corpus drivers and the router keep such a mesh out of them and
+    leave it to the host encoder, which raises the same error for it
+    alone."""
+    return any(a.att_type != AttributeType.CUSTOM
+               and np.issubdtype(a.values.dtype, np.floating)
+               and not np.isfinite(a.values).all()
+               for a in mesh.attributes)
 
 
 # default wire depths (portabilization/mod.rs:116-143): POSITION 11,
@@ -464,18 +505,60 @@ def _device_extra_attribute_entries(meshes, idxs, topo: PreparedTopology,
     return out
 
 
+def _host_entropy_payloads(dev_c: dict, bits: int) -> list[bytes]:
+    """``entropy="host"``: the chunk's position symbols read back (uint16
+    where ``bits + 1 <= 16``: zigzag symbols stay below 2^(bits+1)) and
+    each mesh's DirectCoded payload made by the host's C++ coder, on a
+    pool of 8 threads. K2's counts are held to the symbol count, as the
+    device coder holds them."""
+    syms = dev_c["symbols"]
+    if bits + 1 <= 16:
+        syms = syms.to(torch.uint16)
+    n_counted = int(dev_c["counts"].sum())
+    syms = syms.cpu().numpy()
+    if n_counted != syms.size:
+        raise RuntimeError(f"histogram lost symbols: {n_counted} of "
+                           f"{syms.size} counted")
+
+    def one(sym):
+        w = ByteWriter()
+        encode_symbols(sym.astype(np.uint64).ravel(), sym.shape[-1],
+                       DIRECT_CODED, w)
+        return w.getvalue()
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        return list(pool.map(one, syms))
+
+
 class BatchEncoder:
     """Encodes meshes with topology-group batching, the POSITION, NORMAL
     and TEX_COORD attributes on the device, and single meshes through the
-    host plane or the single-mesh device routes. The device paths take a
-    ``cfg`` that differs from the default Config only in quantization
-    depths; ``encode_mesh`` takes any. ``n_host_attributes`` counts the
-    NORMAL and TEX_COORD attributes that a guard of the device chains sent
-    to the host encoder (per mesh and attribute); ``timings`` holds the
-    host seconds of the last device call by stage (``position_s``: the
-    quantize, upload, fused step and rANS coder of the position attribute;
-    ``chains_s``: the NORMAL and TEX_COORD chains with their readback and
-    host payloads; the chunked route's ``pass1_s`` ... ``pass3_s``)."""
+    host plane or the single-mesh device routes; ``encode_corpus`` drives
+    files on disk through one of the planes or the router. The device
+    paths take a ``cfg`` that differs from the default Config only in
+    quantization depths; ``encode_mesh`` takes any. ``n_host_attributes``
+    counts the NORMAL and TEX_COORD attributes that a guard of the device
+    chains sent to the host encoder (per mesh and attribute); ``timings``
+    holds the host seconds of the last device call by stage
+    (``position_s``: the quantize, upload, fused step and rANS coder of the
+    position attribute; ``chains_s``: the NORMAL and TEX_COORD chains with
+    their readback and host payloads; the chunked route's ``pass1_s`` ...
+    ``pass3_s``).
+
+    ``use_device``: the plane of ``encode_corpus``: True (the default) the
+    device plane, False the host plane, ``"auto"`` the router
+    (``encode_meshes_auto``). ``device``: where the device plane runs (None:
+    the card; ``"cpu"`` runs the kernels' plain twins); a method's own
+    ``device`` argument wins over it. A failure of a device plane raises,
+    in the corpus driver and the router too: nothing falls back to the
+    host plane. Per-file isolation comes from the input check
+    (``_refused_input``): a mesh the host encoder would refuse is left to
+    the per-file pass, which reports the encoder's error, and never joins
+    a device group. ``route_cache_path``: the
+    router's decision cache on disk; ``"default"`` is
+    ``TORCHDRACO_ROUTE_CACHE`` or ``~/.cache/torchdraco/route_cache.json``,
+    None or ``""`` keeps decisions in memory only. ``routing_log`` holds
+    one entry per topology group the router decided."""
 
     # meshes per device call: the group's lanes run in one K3 launch
     DEVICE_CHUNK = 512
@@ -488,7 +571,9 @@ class BatchEncoder:
     # 1.7 GB, a resident mesh at most RESIDENT_MAX_BYTES.
     DEV_CACHE_BUDGET = 8 << 30
     # a lone mesh of CHUNKED_MIN_VERTS << 2 vertices or more is "huge": the
-    # router (not ported yet) sends it to _encode_huge
+    # router sends it to _encode_huge; a group of meshes of
+    # CHUNKED_MIN_VERTS vertices or more is probed whatever its size, and
+    # on one mesh only
     CHUNKED_MIN_VERTS = 1 << 17
     # _encode_huge keeps a mesh resident while the resident route's
     # estimated peak (_resident_peak_bytes) stays within RESIDENT_MAX_BYTES,
@@ -510,10 +595,38 @@ class BatchEncoder:
     # those four meshes.
     RESIDENT_BYTES_PER_VERTEX = 64
     RESIDENT_UV_BYTES_PER_VERTEX = 768
+    # encode_corpus holds this many loaded meshes at once on the device
+    # planes: two DEVICE_CHUNKs, so that a topology group of DEVICE_CHUNK
+    # meshes inside a window fills one chunk
+    DEVICE_CORPUS_WINDOW = 1024
+    # The router's knobs, from chip_smoke.py phase 13.2's sweep of
+    # encode_meshes_device at B = 1 ... 512 against the host plane per mesh
+    # (64 x 64 grids; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6).
+    # MIN_DEVICE_GROUP: a smaller group of small meshes stays on the host
+    # without a probe. The device plane beat the host plane from B = 2 with
+    # normals and UVs (35 ms against 51 ms; 25.6 ms a mesh on the host) and
+    # from B = 16 with positions only (13 ms against 14 ms; 0.87 ms a mesh).
+    # PROBE_CHUNK: the least width of the device probe, where the device
+    # plane's time a mesh came within twice its time a mesh at B = 512
+    # (positions only: 0.81 against 0.46 ms). PROBE_SKIP_S: a group whose
+    # whole host cost is below this skips the probe: the device plane's
+    # wall at PROBE_CHUNK meshes, positions only. chip_smoke.py runs the
+    # corpus with these values and prints the sweep's beside them.
+    MIN_DEVICE_GROUP = 2
+    PROBE_SKIP_S = 0.013
+    PROBE_CHUNK = 16
 
-    def __init__(self, cfg=None) -> None:
+    def __init__(self, cfg=None, use_device: bool | str = True,
+                 route_cache_path: str | None = "default",
+                 device=None) -> None:
+        if use_device not in (False, True, "auto"):
+            raise ValueError(f"use_device must be bool or 'auto', "
+                             f"got {use_device!r}")
         self.cfg = cfg
+        self.use_device = use_device
+        self.device = device
         self.n_host_attributes = 0
+        self.routing_log: list[dict] = []
         # host seconds of the last device call, by stage
         self.timings: dict = {}
         # topology signature (with the traversal and single-connectivity
@@ -521,6 +634,21 @@ class BatchEncoder:
         self._topo_cache: dict = {}
         # LRU of topologies holding device tables, most recent last
         self._dev_cache: dict = {}
+        # the router's decisions: signature -> (plane, size of the group
+        # the decision routed), and the decision cache on disk
+        self._plane_cache: dict = {}
+        self._route_cache_path = (_route_cache_default_path()
+                                  if route_cache_path == "default"
+                                  else (route_cache_path or None))
+        self._route_disk: dict | None = None
+        self._route_dev_name = "cpu"
+        # throughput observations of the lone-mesh rule: (kind, size
+        # class) -> [position bytes, seconds, bytes at the last persist]
+        self._mbs_obs: dict = {}
+
+    def _dev(self, device) -> torch.device:
+        """The device of a call: its own ``device``, else the encoder's."""
+        return resolve(self.device if device is None else device)
 
     def _dev_cache_touch(self, key, topo: PreparedTopology) -> None:
         """Mark ``topo``'s device tables most recently used and drop the
@@ -572,21 +700,29 @@ class BatchEncoder:
                              normal_bits: int | None = None,
                              uv_bits: int | None = None,
                              device=None) -> list[bytes]:
-        """Per topology group, the fused step and the rANS coder of the
-        position attribute and the NORMAL and TEX_COORD chains run on
-        ``device`` (None: the card; ``"cpu"`` runs the kernels' plain
-        twins) in chunks of DEVICE_CHUNK meshes; the host assembles the
-        bytes. Output equals sequential encode(). ``bits``/``normal_bits``/
-        ``uv_bits`` are the -qp/-qn/-qt depths; unset depths come from
-        ``self.cfg``. An attribute or mesh that a chain's guard refuses
-        (a zero or non-finite normal, a "risky" UV row, non-finite UVs, a
-        type or parent the chains do not take) is coded by the host
-        encoder inside the assembly, same bytes, and counted in
-        ``n_host_attributes``. Errors raise; there is no host fallback."""
-        if entropy != "device":
-            raise ValueError(f"entropy={entropy!r}: only the device rANS "
-                             "coder is ported")
-        dev = resolve(device)
+        """Per topology group, the fused step of the position attribute and
+        the NORMAL and TEX_COORD chains run on ``device`` (None: the
+        encoder's ``device``, else the card; ``"cpu"`` runs the kernels'
+        plain twins) in chunks of DEVICE_CHUNK meshes; the host assembles
+        the bytes. Output equals sequential encode(). ``bits``/
+        ``normal_bits``/``uv_bits`` are the -qp/-qn/-qt depths; unset depths
+        come from ``self.cfg``.
+
+        ``entropy`` picks the rANS coder of the position symbols:
+        ``"device"`` (the default) codes each chunk's meshes as lanes of one
+        K3 launch; ``"host"`` reads the symbols back (uint16 where
+        ``bits + 1 <= 16``) and codes each mesh with the host's C++ coder on
+        a pool of 8 threads. The bytes are the same.
+
+        An attribute or mesh that a chain's guard refuses (a zero or
+        non-finite normal, a "risky" UV row, non-finite UVs, a type or
+        parent the chains do not take) is coded by the host encoder inside
+        the assembly, same bytes, and counted in ``n_host_attributes``.
+        Errors raise, for the whole call; there is no host fallback."""
+        if entropy not in ("device", "host"):
+            raise ValueError(f"entropy must be 'device' or 'host', "
+                             f"got {entropy!r}")
+        dev = self._dev(device)
         dflt = _device_quant_bits(self.cfg)
         if dflt is None:
             raise ValueError(
@@ -612,60 +748,89 @@ class BatchEncoder:
             groups.setdefault(topology_signature(m), []).append(idx)
         t["signatures_s"] = clock() - t0
         out: list[bytes | None] = [None] * len(meshes)
-        bits_byte = bytes([bits])
         for sig, idxs in groups.items():
+            self._encode_group_device(meshes, sig, idxs, out, bits,
+                                      normal_bits, uv_bits, cfg, entropy,
+                                      dev)
+        return out
+
+    def _device_plane(self, meshes: list, device=None) -> list:
+        """The device plane of the corpus driver, the router and
+        ``transcode_corpus``: ``encode_meshes_device`` at the encoder's
+        depths over the meshes that pass the input check; a refused mesh
+        yields None (the caller's per-file pass reports the host encoder's
+        error for it), so one bad file does not stop its topology group.
+        A device failure raises."""
+        out: list[bytes | None] = [None] * len(meshes)
+        ok = [i for i, m in enumerate(meshes) if not _refused_input(m)]
+        if ok:
+            blobs = self.encode_meshes_device([meshes[i] for i in ok],
+                                              device=device)
+            for i, blob in zip(ok, blobs):
+                out[i] = blob
+        return out
+
+    def _encode_group_device(self, meshes, sig, idxs, out, bits,
+                             normal_bits, uv_bits, cfg, entropy,
+                             dev) -> None:
+        """One topology group of ``encode_meshes_device`` into ``out``."""
+        t = self.timings
+        clock = time.perf_counter
+        t0 = clock()
+        topo = self._topo_cache.get(sig)
+        if topo is None:
+            topo = PreparedTopology(meshes[idxs[0]])
+            self._topo_cache[sig] = topo
+        t["topology_s"] += clock() - t0
+        pos_att0 = meshes[idxs[0]].position_attribute()
+        batch = np.stack([meshes[i].position_attribute().values
+                          .astype(np.float32) for i in idxs])
+        bits_byte = bytes([bits])
+        for c0 in range(0, len(idxs), self.DEVICE_CHUNK):
+            chunk = idxs[c0:c0 + self.DEVICE_CHUNK]
             t0 = clock()
-            topo = self._topo_cache.get(sig)
-            if topo is None:
-                topo = PreparedTopology(meshes[idxs[0]])
-                self._topo_cache[sig] = topo
-            t["topology_s"] += clock() - t0
-            pos_att0 = meshes[idxs[0]].position_attribute()
-            batch = np.stack([meshes[i].position_attribute().values
-                              .astype(np.float32) for i in idxs])
-            for c0 in range(0, len(idxs), self.DEVICE_CHUNK):
-                chunk = idxs[c0:c0 + self.DEVICE_CHUNK]
-                t0 = clock()
-                dev_c = device_encode_group(
-                    batch[c0:c0 + self.DEVICE_CHUNK], topo, pos_att0,
-                    bits=bits, device=dev)
+            dev_c = device_encode_group(
+                batch[c0:c0 + self.DEVICE_CHUNK], topo, pos_att0,
+                bits=bits, device=dev)
+            if entropy == "device":
                 payloads = encode_group_entropy_device(dev_c["symbols"],
                                                        dev_c["counts"])
-                t1 = clock()
-                # the NORMAL and TEX_COORD chains read the positions the
-                # fused step uploaded: quantized once, uploaded once
-                extra = _device_extra_attribute_entries(
-                    meshes, chunk, topo, bits=bits, normal_bits=normal_bits,
-                    uv_bits=uv_bits, device=dev, q_pos=dev_c["q_dev"])
-                t2 = clock()
-                for k, i in enumerate(chunk):
-                    w = ByteWriter()
-                    w.write_u32(int(dev_c["vmin"][k]) & 0xFFFFFFFF)
-                    w.write_u32(int(dev_c["vmax"][k]) & 0xFFFFFFFF)
-                    pos_idx = next(
-                        j for j, a in enumerate(meshes[i].attributes)
-                        if a.att_type == AttributeType.POSITION)
-                    # quantization already ran on the host: hand the
-                    # assembly its metadata bytes and values, so it does
-                    # not re-quantize the mesh
-                    port_meta = (dev_c["mins"][k].astype("<f4").tobytes()
-                                 + dev_c["delta_max"][k:k + 1]
-                                 .astype("<f4").tobytes() + bits_byte)
-                    pre = {pos_idx: {"payload": payloads[k],
-                                     "xform_meta": bytes(w.getvalue()),
-                                     "port_meta": port_meta,
-                                     "port_values": dev_c["q"][k]}}
-                    pre.update(extra.get(k, {}))
-                    self.n_host_attributes += sum(
-                        1 for j, a in enumerate(meshes[i].attributes)
-                        if a.att_type in _CHAIN_TYPES and j not in pre)
-                    out[i] = encode_with_topology(meshes[i], topo, cfg=cfg,
-                                                  precomputed=pre)
-                t["position_s"] += t1 - t0
-                t["chains_s"] += t2 - t1
-                t["assembly_s"] += clock() - t2
-            self._dev_cache_touch(sig, topo)
-        return out
+            else:
+                payloads = _host_entropy_payloads(dev_c, bits)
+            t1 = clock()
+            # the NORMAL and TEX_COORD chains read the positions the
+            # fused step uploaded: quantized once, uploaded once
+            extra = _device_extra_attribute_entries(
+                meshes, chunk, topo, bits=bits, normal_bits=normal_bits,
+                uv_bits=uv_bits, device=dev, q_pos=dev_c["q_dev"])
+            t2 = clock()
+            for k, i in enumerate(chunk):
+                w = ByteWriter()
+                w.write_u32(int(dev_c["vmin"][k]) & 0xFFFFFFFF)
+                w.write_u32(int(dev_c["vmax"][k]) & 0xFFFFFFFF)
+                pos_idx = next(
+                    j for j, a in enumerate(meshes[i].attributes)
+                    if a.att_type == AttributeType.POSITION)
+                # quantization already ran on the host: hand the
+                # assembly its metadata bytes and values, so it does
+                # not re-quantize the mesh
+                port_meta = (dev_c["mins"][k].astype("<f4").tobytes()
+                             + dev_c["delta_max"][k:k + 1]
+                             .astype("<f4").tobytes() + bits_byte)
+                pre = {pos_idx: {"payload": payloads[k],
+                                 "xform_meta": bytes(w.getvalue()),
+                                 "port_meta": port_meta,
+                                 "port_values": dev_c["q"][k]}}
+                pre.update(extra.get(k, {}))
+                self.n_host_attributes += sum(
+                    1 for j, a in enumerate(meshes[i].attributes)
+                    if a.att_type in _CHAIN_TYPES and j not in pre)
+                out[i] = encode_with_topology(meshes[i], topo, cfg=cfg,
+                                              precomputed=pre)
+            t["position_s"] += t1 - t0
+            t["chains_s"] += t2 - t1
+            t["assembly_s"] += clock() - t2
+        self._dev_cache_touch(sig, topo)
 
     # ------------------------------------------------------------------
     # one large mesh
@@ -725,17 +890,18 @@ class BatchEncoder:
     def encode_mesh_device(self, mesh, bits: int | None = None,
                            device=None) -> bytes:
         """One mesh with its positions and gathers resident on ``device``
-        (None: the card; ``"cpu"`` runs the kernels' plain twins): the host
-        C++ quantize, one uint16 upload, K1 and K2 at B = 1, the NORMAL and
-        TEX_COORD chains on the same uploaded positions, one readback of
-        the symbols (uint16 where ``bits + 1 <= 16``), and the host's C++
-        rANS coder and assembly. The position symbols form one rANS
+        (None: the encoder's ``device``, else the card; ``"cpu"`` runs
+        the plain twins): the host C++ quantize, one uint16 upload, K1 and
+        K2 at B = 1, the NORMAL and TEX_COORD chains on the same uploaded
+        positions, one readback of the symbols (uint16 where ``bits + 1 <=
+        16``), and the host's C++ rANS coder and assembly. The position
+        symbols form one rANS
         stream, which one lane of K3 would code at one dependent step a
         symbol; the host coder does it. Output equals ``encode()``; a guard
         of the chains is counted in ``n_host_attributes``; errors raise."""
         depths = self._resolve_depths(bits)
         bits = depths["bits"]
-        dev = resolve(device)
+        dev = self._dev(device)
         t = self.timings = dict.fromkeys(
             ("topology_s", "position_s", "chains_s", "assembly_s"), 0.0)
         clock = time.perf_counter
@@ -778,8 +944,9 @@ class BatchEncoder:
     def encode_mesh_device_chunked(self, mesh, bits: int | None = None,
                                    chunk: int = 1 << 15,
                                    device=None) -> bytes:
-        """One mesh streamed through ``device`` (None: the card; ``"cpu"``
-        runs the plain twins) ``chunk`` rows at a time, so that the device
+        """One mesh streamed through ``device`` (None: the encoder's
+        ``device``, else the card; ``"cpu"`` runs the plain twins)
+        ``chunk`` rows at a time, so that the device
         holds O(chunk) whatever the mesh: pass 1 takes the float range
         over vertex chunks (padded by repeating a real row), pass 2 the
         range of the quantized values, pass 3 runs traversal segments,
@@ -790,7 +957,7 @@ class BatchEncoder:
         coded by the host inside the assembly. Output equals
         ``encode()``; errors raise."""
         bits = self._resolve_depths(bits)["bits"]
-        dev = resolve(device)
+        dev = self._dev(device)
         if chunk < 1:
             raise ValueError(f"chunk must be positive, got {chunk}")
         clock = time.perf_counter
@@ -912,3 +1079,381 @@ class BatchEncoder:
         if self._resident_peak_bytes(mesh) > self.RESIDENT_MAX_BYTES:
             return self.encode_mesh_device_chunked(mesh, device=device)
         return self.encode_mesh_device(mesh, device=device)
+
+    def _encode_one_safe(self, mesh) -> bytes | None:
+        try:
+            return self.encode_mesh(mesh)
+        except Exception:
+            return None
+
+    # ------------------------------------------------------------------
+    # the router
+
+    def encode_meshes_auto(self, meshes: list, device=None) -> list:
+        """Per topology group, the host plane or the device plane (on
+        ``device``; None: the encoder's ``device``, else the card), chosen
+        by measuring both in this process on a part of the group; the
+        probes' outputs are kept. Both planes give the bytes of
+        ``encode()``, so a mix is safe. Static rules come first: a lone
+        mesh of CHUNKED_MIN_VERTS << 2 vertices or more takes
+        ``_encode_huge`` (unless this process's or the disk's throughput
+        estimates for its size class say the host plane is more than twice
+        as fast), any other lone mesh and a group of fewer than
+        MIN_DEVICE_GROUP small meshes the host plane. A measured decision
+        is kept for the topology (in memory, and on disk under the device's
+        name) and reused: a device decision for groups at least as large as
+        the one it routed, a host decision for groups at most twice as
+        large. Decisions go to ``routing_log``. A mesh that fails the input
+        check (``_refused_input``) yields None and joins no group, as one
+        that the host plane fails to encode does; a failure of a device
+        plane raises."""
+        dev = self._dev(device)
+        self._route_dev_name = _device_name(dev)
+        groups: dict[str, list[int]] = {}
+        for idx, m in enumerate(meshes):
+            if not _refused_input(m):
+                groups.setdefault(topology_signature(m), []).append(idx)
+        out: list[bytes | None] = [None] * len(meshes)
+        for sig, idxs in groups.items():
+            self._route_group(meshes, idxs, sig, out, dev)
+        return out
+
+    def _route_group(self, meshes, idxs, sig, out, dev) -> None:
+        n = len(idxs)
+        m0 = meshes[idxs[0]]
+        v = int(m0.position_attribute().num_points)
+        nbytes = int(m0.position_attribute().values.nbytes)
+        entry = {"group": sig[:12], "meshes": n, "verts": v}
+        if n == 1:
+            # a lone mesh cannot be probed without doing the work twice:
+            # huge ones take _encode_huge, unless the estimates of their
+            # size class say the host plane is more than twice as fast
+            huge = v >= (self.CHUNKED_MIN_VERTS << 2)
+            reason = "single mesh (static)"
+            if huge:
+                est_h = self._mbs_estimate("host", v)
+                est_d = self._mbs_estimate("huge_device", v)
+                if est_h and est_d:
+                    if est_h > 2 * est_d:
+                        huge = False
+                    elif est_d > 2 * est_h:
+                        huge = True
+                    reason = (f"single mesh (measured: device "
+                              f"{est_d:.1f} vs host {est_h:.1f} MB/s)")
+            t0 = _clock()
+            out[idxs[0]] = (self._encode_huge(m0, dev) if huge
+                            else self._encode_one_safe(m0))
+            dt = _clock() - t0
+            if out[idxs[0]] is not None and dt > 0:
+                self._note_mbs("huge_device" if huge else "host", nbytes,
+                               dt, v)
+            entry.update(plane="device" if huge else "host", reason=reason)
+            self.routing_log.append(entry)
+            return
+        if n < self.MIN_DEVICE_GROUP and v < self.CHUNKED_MIN_VERTS:
+            for i in idxs:
+                out[i] = self._encode_one_safe(meshes[i])
+            entry.update(plane="host", reason="small group")
+            self.routing_log.append(entry)
+            return
+        cached = self._plane_cache.get(sig)
+        source = "memory"
+        if cached is None and self._route_cache_path:
+            disk = self._route_cache_load().get(self._route_key(sig))
+            if disk is not None:
+                cached = (disk["plane"], int(disk["n_basis"]))
+                source = "disk"
+        if cached is not None:
+            plane, n_basis = cached
+            # the safe direction: a device decision holds for larger
+            # groups (the fixed costs spread further), a host one for
+            # smaller ones and up to twice the size
+            if ((plane == "device" and n >= n_basis)
+                    or (plane == "host" and n <= 2 * n_basis)):
+                if source == "disk":
+                    self._plane_cache[sig] = cached
+                if plane == "device":
+                    for i, blob in zip(idxs, self._device_plane(
+                            [meshes[i] for i in idxs], dev)):
+                        out[i] = blob
+                else:
+                    for i in idxs:
+                        out[i] = self._encode_one_safe(meshes[i])
+                entry.update(plane=plane,
+                             reason=f"cached decision ({source})")
+                self.routing_log.append(entry)
+                return
+        # probe: the host plane on a few meshes (one, if they are large),
+        # the device plane on a part of the group
+        k = 1 if v >= self.CHUNKED_MIN_VERTS else min(4, n - 1)
+        t0 = _clock()
+        for i in idxs[:k]:
+            out[i] = self._encode_one_safe(meshes[i])
+        th = (_clock() - t0) / k
+        self._note_mbs("host", k * nbytes, th * k, v)
+        if th * (n - k) < self.PROBE_SKIP_S:
+            # the whole group costs the host less than a device probe
+            for i in idxs[k:]:
+                out[i] = self._encode_one_safe(meshes[i])
+            entry.update(plane="host", reason="group cheaper than probe",
+                         host_s_per_mesh=round(th, 4))
+            self._keep_decision(sig, "host", n, th, None)
+            self.routing_log.append(entry)
+            return
+        # a quarter of the group, at least PROBE_CHUNK meshes and at most
+        # 128: the probe prices how far the device plane's fixed costs
+        # spread over a group of this size
+        probe_w = min(max(self.PROBE_CHUNK, n // 4), 128, n - k)
+        chunk_ids = idxs[k:k + probe_w]
+        t0 = _clock()  # the call returns bytes on the host: synchronous
+        dev_blobs = self._device_plane([meshes[i] for i in chunk_ids], dev)
+        td = (_clock() - t0) / len(chunk_ids)
+        for i, blob in zip(chunk_ids, dev_blobs):
+            out[i] = blob
+        rest = idxs[k + probe_w:]
+        use_dev = td < th
+        if use_dev and rest:
+            for i, blob in zip(rest, self._device_plane(
+                    [meshes[i] for i in rest], dev)):
+                out[i] = blob
+        else:
+            for i in rest:
+                out[i] = self._encode_one_safe(meshes[i])
+        entry.update(plane="device" if use_dev else "host",
+                     host_s_per_mesh=round(th, 4),
+                     device_s_per_mesh=round(td, 4))
+        self._keep_decision(sig, "device" if use_dev else "host", n, th, td)
+        self.routing_log.append(entry)
+
+    def _keep_decision(self, sig: str, plane: str, n: int, th: float,
+                       td: float | None) -> None:
+        """Keep a measured decision for the topology, in memory and on
+        disk, with the size of the group it routed as its basis."""
+        self._plane_cache[sig] = (plane, n)
+        self._route_cache_persist(self._route_key(sig), {
+            "plane": plane, "n_basis": int(n),
+            "host_s_per_mesh": round(th, 5),
+            "device_s_per_mesh": None if td is None else round(td, 5),
+            "ts": time.time()})
+
+    def _route_key(self, *parts) -> str:
+        """A key of the decision cache: a decision measured on one device
+        does not route another."""
+        return "|".join(str(p) for p in (*parts, self._route_dev_name))
+
+    def _route_cache_load(self) -> dict:
+        """Unexpired entries of the decision cache on disk ({} where it is
+        off, missing or unreadable)."""
+        if self._route_disk is not None:
+            return self._route_disk
+        self._route_disk = {}
+        p = self._route_cache_path
+        if p:
+            try:
+                with open(p) as f:
+                    data = json.load(f)
+                if isinstance(data, dict) and data.get("v") == 1:
+                    now = time.time()
+                    self._route_disk = {
+                        k: e for k, e in data.get("entries", {}).items()
+                        if isinstance(e, dict)
+                        and now - float(e.get("ts", 0)) < ROUTE_CACHE_TTL_S}
+            except Exception:
+                pass
+        return self._route_disk
+
+    def _route_cache_persist(self, key: str, entry: dict) -> None:
+        """Write one entry into the cache on disk (atomic rename; a failure
+        is silent: the cache saves probes, it is never needed)."""
+        p = self._route_cache_path
+        if not p:
+            return
+        try:
+            entries = dict(self._route_cache_load())
+            entries[key] = entry
+            os.makedirs(os.path.dirname(p) or ".", exist_ok=True)
+            tmp = f"{p}.tmp{os.getpid()}"
+            with open(tmp, "w") as f:
+                json.dump({"v": 1, "entries": entries}, f)
+            os.replace(tmp, p)
+            self._route_disk = entries
+        except Exception:
+            pass
+
+    def _note_mbs(self, kind: str, nbytes: int, seconds: float,
+                  verts: int) -> None:
+        """Add a throughput observation (position bytes over wall seconds)
+        to its size class, ``floor(log2(verts))``; persist when the
+        class's evidence has doubled. ``kind``: "host" (a host-plane
+        encode) or "huge_device" (``_encode_huge``)."""
+        cls = _size_class(verts)
+        obs = self._mbs_obs.setdefault((kind, cls), [0.0, 0.0, 0.0])
+        obs[0] += float(nbytes)
+        obs[1] += float(seconds)
+        if obs[0] >= 1e6 and obs[1] > 0.05 and obs[0] >= 2 * obs[2]:
+            obs[2] = obs[0]
+            self._route_cache_persist(
+                self._route_key("__mbs__", kind, cls),
+                {"mbs": round(obs[0] / obs[1] / 1e6, 2), "ts": time.time()})
+
+    def _mbs_estimate(self, kind: str, verts: int) -> float | None:
+        """MB/s of ``kind`` for meshes of the size class of ``verts``:
+        this process's observations first, then the disk's record."""
+        cls = _size_class(verts)
+        obs = self._mbs_obs.get((kind, cls))
+        if obs is not None and obs[0] >= 1e6 and obs[1] > 0.05:
+            return obs[0] / obs[1] / 1e6
+        e = self._route_cache_load().get(self._route_key("__mbs__", kind,
+                                                         cls))
+        if e and e.get("mbs"):
+            return float(e["mbs"])
+        return None
+
+    # ------------------------------------------------------------------
+    # the corpus
+
+    def encode_corpus(self, inputs: list[str], out_dir: str,
+                      resume: bool = True, workers: int = 1,
+                      device_window: int | None = None) -> dict:
+        """Encode mesh files (.obj, .ply, .gltf, .glb) into ``out_dir`` as
+        ``<basename>.drc``, on the plane ``use_device`` names, with resume
+        (an existing output is skipped) and per-file error isolation (a
+        file that fails is reported in ``failed``). On the device planes
+        the inputs are loaded ``device_window`` meshes at a time (default
+        DEVICE_CORPUS_WINDOW) and each window is encoded before the files
+        are written; the bytes do not depend on the window. ``workers`` > 1
+        loads the windows and writes (and host-encodes) files on a thread
+        pool; only the calling thread touches the device. A ``cfg`` beyond
+        the device planes' quantization depths takes the host plane
+        (``device_disabled_by_cfg`` in the report). A device failure
+        raises. Writes and returns the report (``corpus_report.json``); its
+        ``stages_s`` splits the wall into loading and encoding the device
+        windows and the per-file pass."""
+        from ..io import load_mesh
+
+        dev_plane = (self.use_device
+                     and _device_quant_bits(self.cfg) is not None)
+        dev = self._dev(None) if dev_plane else None
+        os.makedirs(out_dir, exist_ok=True)
+        report = {"encoded": 0, "skipped": 0, "failed": [],
+                  "total_in_bytes": 0, "total_out_bytes": 0}
+        t0 = time.perf_counter()
+
+        def out_path_for(path):
+            name = os.path.splitext(os.path.basename(path))[0] + ".drc"
+            return os.path.join(out_dir, name)
+
+        inputs, name_collisions = _drop_output_collisions(inputs,
+                                                          out_path_for)
+        for path in name_collisions:
+            report["failed"].append(
+                {"path": path, "error": "output name collision"})
+
+        def load(path):
+            try:
+                return load_mesh(path)
+            except Exception:
+                return None  # the per-file pass below reports it
+
+        def one(path):
+            out_path = out_path_for(path)
+            if resume and os.path.isfile(out_path):
+                return ("skipped", path, 0, 0)
+            try:
+                blob = device_blobs.get(path)
+                if blob is None:
+                    blob = self.encode_mesh(load_mesh(path))
+                tmp = out_path + f".tmp{os.getpid()}"
+                with open(tmp, "wb") as f:
+                    f.write(blob)
+                os.replace(tmp, out_path)
+                return ("encoded", path, os.path.getsize(path), len(blob))
+            except Exception as e:  # per-file isolation
+                return ("failed", path, repr(e), 0)
+
+        device_blobs: dict[str, bytes | None] = {}
+        stages = {"load_s": 0.0, "device_s": 0.0}
+        if self.use_device and not dev_plane:
+            report["device_disabled_by_cfg"] = True
+        pool = ThreadPoolExecutor(max_workers=workers) if workers > 1 else None
+        each = pool.map if pool is not None else map
+        try:
+            if dev_plane:
+                # load W meshes, encode them by topology group, keep only
+                # the blobs; inputs whose outputs exist are not loaded
+                W = device_window or self.DEVICE_CORPUS_WINDOW
+                pending = [p for p in inputs if not (
+                    resume and os.path.isfile(out_path_for(p)))]
+                for w0 in range(0, len(pending), W):
+                    t1 = time.perf_counter()
+                    window = pending[w0:w0 + W]
+                    loaded = [(p, m) for p, m in zip(window,
+                                                     each(load, window))
+                              if m is not None]
+                    t2 = time.perf_counter()
+                    stages["load_s"] += t2 - t1
+                    if not loaded:
+                        continue
+                    paths, meshes = zip(*loaded)
+                    blobs = (self.encode_meshes_auto(list(meshes), device=dev)
+                             if self.use_device == "auto"
+                             else self._device_plane(list(meshes), dev))
+                    device_blobs.update(zip(paths, blobs))
+                    stages["device_s"] += time.perf_counter() - t2
+            t1 = time.perf_counter()
+            results = list(each(one, inputs))
+            stages["files_s"] = time.perf_counter() - t1
+        finally:
+            if pool is not None:
+                pool.shutdown()
+
+        for status, path, a, b in results:
+            if status == "encoded":
+                report["encoded"] += 1
+                report["total_in_bytes"] += a
+                report["total_out_bytes"] += b
+            elif status == "skipped":
+                report["skipped"] += 1
+            else:
+                report["failed"].append({"path": path, "error": a})
+        report["seconds"] = round(time.perf_counter() - t0, 3)
+        # where the seconds went: loading and encoding the device windows,
+        # then the per-file pass (writes, and host encodes)
+        report["stages_s"] = {k: round(v, 3) for k, v in stages.items()}
+        if self.use_device == "auto":
+            report["routing"] = self.routing_log
+        tmp_rep = os.path.join(out_dir,
+                               f"corpus_report.json.tmp{os.getpid()}")
+        with open(tmp_rep, "w") as f:
+            json.dump(report, f, indent=1)
+        os.replace(tmp_rep, os.path.join(out_dir, "corpus_report.json"))
+        return report
+
+
+# the router's clock (a test replaces it)
+_clock = time.perf_counter
+
+# a decision or estimate on disk older than this is measured again: the
+# host's speed drifts over hours
+ROUTE_CACHE_TTL_S = 6 * 3600.0
+
+
+def _route_cache_default_path() -> str | None:
+    """TORCHDRACO_ROUTE_CACHE: a path, or "" / "0" for no cache on disk;
+    unset: ``route_cache.json`` under ``$XDG_CACHE_HOME/torchdraco`` (or
+    ``~/.cache/torchdraco``)."""
+    p = os.environ.get("TORCHDRACO_ROUTE_CACHE")
+    if p is not None:
+        return None if p in ("", "0") else p
+    root = os.environ.get("XDG_CACHE_HOME") or os.path.expanduser("~/.cache")
+    return os.path.join(root, "torchdraco", "route_cache.json")
+
+
+def _size_class(verts: int) -> int:
+    """floor(log2(verts)): the estimates of the lone-mesh rule are kept
+    apart by it, so small meshes do not price a large one."""
+    return max(int(verts), 1).bit_length() - 1
+
+
+def _device_name(dev: torch.device) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"

@@ -17,11 +17,18 @@ A blob that is malformed, of another topology, or carries a stream the
 lanes cannot take (LengthCoded) goes to the host decoder on its own; those
 are counted in ``BatchDecoder.n_host_blobs``. A failure of a device stage
 (the lanes, the normal phase) raises: no batch falls back to the host.
+
+``BatchDecoder.decode_corpus`` decodes ``.drc`` files on disk into OBJ or
+PLY files, groups of files with the same leading bytes through the shared
+topology decoder on the device, with resume and per-file error isolation.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -35,6 +42,7 @@ from ..ops.normals import (
     collect_normal_rings, normal_decode_chain, rings_to_torch,
 )
 from ..ops.rans_lanes import rans_decode_lanes
+from .batch import _drop_output_collisions
 from ..wire.byte_io import ByteReader
 
 # Per-call budget for a lane decode's device working set: the lanes'
@@ -355,3 +363,120 @@ class BatchDecoder:
         self.timings.update(collect_s=t1 - t0, device_stage_s=t2 - t1,
                             assemble_s=time.perf_counter() - t2)
         return out
+
+    def decode_corpus(self, inputs: list[str], out_dir: str,
+                      resume: bool = True, fmt: str = "obj",
+                      workers: int = 1, use_device: bool = True,
+                      device=None) -> dict:
+        """Decode .drc files into ``out_dir`` as ``<basename>.<fmt>``
+        (``fmt``: obj or ply), with resume (an existing output is skipped)
+        and per-file error isolation (a bad blob is reported in ``failed``).
+        ``use_device`` (the default): the files are grouped by their first
+        64 bytes and each group goes through
+        ``decode_blobs_shared_topology(entropy="device")`` on ``device``
+        (None: the card; ``"cpu"`` runs D1's plain twin), which decodes
+        every symbol stream of the group as rANS lanes and, with
+        ``normals="auto"``, takes the batched normal phase for a group of
+        PHASED_NORMALS_MIN_BLOBS blobs or more; a failure there raises.
+        ``use_device=False`` is the host plane. ``workers`` > 1 decodes the
+        host plane's files on a thread pool. Writes and returns the report
+        (``decode_report.json``), whose ``stages_s`` splits the wall into
+        the device groups and the per-file pass."""
+        from ..io.obj import save_obj as _save_obj
+        from ..io.ply import save_ply as _save_ply
+        save_mesh = _save_ply if fmt == "ply" else _save_obj
+        dev = resolve(device) if use_device else None
+
+        os.makedirs(out_dir, exist_ok=True)
+        report = {"decoded": 0, "skipped": 0, "failed": [],
+                  "total_in_bytes": 0}
+        t0 = time.perf_counter()
+
+        def out_path_for(path):
+            name = os.path.splitext(os.path.basename(path))[0] + "." + fmt
+            return os.path.join(out_dir, name)
+
+        inputs, collided = _drop_output_collisions(inputs, out_path_for)
+        for path in collided:
+            report["failed"].append(
+                {"path": path, "error": "output name collision"})
+
+        done: dict[str, tuple] = {}
+        t1 = time.perf_counter()
+        if use_device:
+            # group by a cheap prefix key (the shared-topology decoder
+            # checks the whole connectivity prefix), then decode and write
+            # one group at a time: memory is O(group)
+            groups: dict[bytes, list[str]] = {}
+            for path in inputs:
+                if resume and os.path.isfile(out_path_for(path)):
+                    continue
+                try:
+                    with open(path, "rb") as f:
+                        head = f.read(64)
+                    groups.setdefault(bytes(head), []).append(path)
+                except Exception:
+                    pass  # the per-file pass below reports it
+            for paths in groups.values():
+                blobs, sizes = [], []
+                for p in paths:
+                    with open(p, "rb") as f:
+                        b = f.read()
+                    blobs.append(b)
+                    sizes.append(len(b))
+                got = self.decode_blobs_shared_topology(
+                    blobs, entropy="device", device=dev)
+                for p, mesh, nbytes in zip(paths, got, sizes):
+                    if mesh is None:
+                        continue  # the host pass below reports the error
+                    try:
+                        out_path = out_path_for(p)
+                        tmp = out_path + f".tmp{os.getpid()}"
+                        save_mesh(mesh, tmp)
+                        os.replace(tmp, out_path)
+                        done[p] = ("decoded", p, nbytes)
+                    except Exception as e:
+                        done[p] = ("failed", p, repr(e))
+
+        def one(path):
+            if path in done:
+                return done[path]
+            out_path = out_path_for(path)
+            if resume and os.path.isfile(out_path):
+                return ("skipped", path, 0)
+            try:
+                with open(path, "rb") as f:
+                    blob = f.read()
+                mesh = decode(blob)
+                tmp = out_path + f".tmp{os.getpid()}"
+                save_mesh(mesh, tmp)
+                os.replace(tmp, out_path)
+                return ("decoded", path, len(blob))
+            except Exception as e:  # per-file isolation
+                return ("failed", path, repr(e))
+
+        t2 = time.perf_counter()
+        if workers > 1:
+            with ThreadPoolExecutor(max_workers=workers) as pool:
+                results = list(pool.map(one, inputs))
+        else:
+            results = [one(p) for p in inputs]
+
+        for status, path, x in results:
+            if status == "decoded":
+                report["decoded"] += 1
+                report["total_in_bytes"] += x
+            elif status == "skipped":
+                report["skipped"] += 1
+            else:
+                report["failed"].append({"path": path, "error": x})
+        report["seconds"] = round(time.perf_counter() - t0, 3)
+        # the device groups (read, decode, write), then the per-file pass
+        report["stages_s"] = {"device_s": round(t2 - t1, 3),
+                              "files_s": round(time.perf_counter() - t2, 3)}
+        tmp_rep = os.path.join(out_dir,
+                               f"decode_report.json.tmp{os.getpid()}")
+        with open(tmp_rep, "w") as f:
+            json.dump(report, f, indent=1)
+        os.replace(tmp_rep, os.path.join(out_dir, "decode_report.json"))
+        return report
