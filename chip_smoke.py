@@ -30,7 +30,15 @@ knobs in the code, over a mixed corpus of OBJ, PLY and GLB files with a
 broken file and a NaN vertex, every .drc equal; a second router pass from
 the decision cache
 on disk; decode_corpus and transcode_corpus on both planes; and the
-torchdraco-corpus CLI in its own process. That the port's host codec
+torchdraco-corpus CLI in its own process. Then several devices (phase
+14), as shards of an axis that names the one card n times (n distinct
+cards where the machine has them): the batch cell over axes of 2 and 4
+with both coders, K1-K3 once a shard, every blob equal to the unsharded
+one; the lane coder over 4 shards; the 1024 x 1024 grid over 4 stream
+shards, its summed histogram equal to phase 12's K2 row; phase 13's
+corpus in two processes joined by gloo, through encode_corpus_multihost
+and the CLI under WORLD_SIZE=2, every file equal to phase 13's; and
+torchdraco.dryrun_multichip(4). That the port's host codec
 equals tpudraco's is what the CPU tests show
 (tests/test_torch_host_codec.py, tests/test_torch_corpus.py); this script
 imports nothing of it.
@@ -45,8 +53,11 @@ integer operations over 67 Tops/s, whichever is larger) and, for the
 histogram, the time of the one PyTorch call that computes the same
 function; the lines before that hold phase 13's walls, sweep and knobs
 (``corpus``), the three chains' device times, launches, peak memory and
-bounds and the end-to-end times of phases 10-11 (``chains``), and phase
-12's (``single_mesh``). K1's and K2's times are medians of BATCHES batches of 50
+bounds and the end-to-end times of phases 10-11 (``chains``), phase
+12's (``single_mesh``) and phase 14's walls, launches and checks
+(``sharded``); each kernel's entry also counts its launches on the
+corpus (``launches_corpus``) and over the shard axis of 4
+(``launches_sharded``). K1's and K2's times are medians of BATCHES batches of 50
 launches; K4's twin runs once, over the path's 512 lanes and 512 lanes of
 random (freq, cum) pairs together, which take the kernel's exact path.
 The full report (ptxas resources, every timing run, the device trace
@@ -93,6 +104,12 @@ CORPUS_SINGLES, LONE_GRID, CORPUS_WORKERS = 24, 768, 8
 SWEEP_MAX, SWEEP_HOST_MESHES = 512, 16
 TRANSCODE_FILES, TRANSCODE_TOPOLOGIES, TRANSCODE_POOL = 64, 8, 16
 CLI_DEVICE_ARGS: list = []
+# phase 14: shard axes of SHARDS entries for the batch cell (the card
+# repeated where the machine has fewer cards), STREAM_SHARDS for the
+# single mesh, and the corpus in two processes on MH_DEVICE (None: each
+# rank's card) with a timeout of MH_TIMEOUT_S each
+SHARDS, STREAM_SHARDS = (2, 4), 4
+MH_DEVICE, MH_TIMEOUT_S = None, 300
 ROUTER_KNOBS = ("MIN_DEVICE_GROUP", "PROBE_SKIP_S", "PROBE_CHUNK")
 # a knob the sweep puts beyond this factor of the code's value is flagged
 # as drifted on the corpus line
@@ -391,7 +408,7 @@ def main() -> int:
     dev_c, step_s = wall_s(lambda: tbatch.device_encode_group(
         positions, topo, pos_att, bits=BITS, device=dev))
     _, ent_s = wall_s(lambda: trl.encode_group_entropy_device(
-        dev_c["symbols"], dev_c["counts"]))
+        dev_c["symbols"][0], dev_c["counts"][0]))
     t["breakdown_s"] = {
         "topology_signatures": sig_s, "host_quantize": quant_s,
         "quantize_upload_step": step_s, "entropy": ent_s,
@@ -1170,7 +1187,8 @@ def main() -> int:
 
     # ---- phase 12: one large mesh through the single-mesh routes -------
     torch.cuda.empty_cache()
-    single, k12 = _phase12(torch, np, torchdraco, encode, tdev, tbatch,
+    single, k12, reuse12 = _phase12(torch, np, torchdraco, encode, tdev,
+                                    tbatch,
                            reset_launch_counts, dev, sync, wall_s, cuda_ms,
                            cuda_ms_batches, kernel_only_ms, max_abs_err,
                            nbytes, bound, traced, fa, half_k, smi_line,
@@ -1178,10 +1196,25 @@ def main() -> int:
     errs.update({name: e["max_abs_err"] for name, e in k12.items()})
 
     # ---- phase 13: the corpus entry points, from files on disk ----------
+    # ---- phase 14: several devices, as shards on the one card -----------
+    # (14.4 reads phase 13's corpus and files; the directory goes after)
+    import shutil
+    import tempfile
     torch.cuda.empty_cache()
-    corpus = _phase13(torch, torchdraco, encode, tdev, trl, tbatch, tdb,
-                      reset_launch_counts, dev, sync, wall_s, smi_line,
-                      meshes, meshes3)
+    corpus_root = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
+    try:
+        corpus = _phase13(torch, torchdraco, encode, tdev, trl, tbatch, tdb,
+                          reset_launch_counts, dev, sync, wall_s, smi_line,
+                          meshes, meshes3, corpus_root)
+        torch.cuda.empty_cache()
+        sharded = _phase14(torch, np, torchdraco, tdev, trl, tbatch,
+                           reset_launch_counts, wall_s, cuda_ms,
+                           kernel_only_ms, smi_line, meshes3,
+                           blobs3, dev_runs10,
+                           (lanes_dev, f6, c6, len6, bufs_d, nb_d),
+                           reuse12, corpus_root)
+    finally:
+        shutil.rmtree(corpus_root, ignore_errors=True)
 
     # the launches of phase 13's counted path: the device plane of
     # encode_corpus over the mixed corpus, and its decode_corpus
@@ -1211,7 +1244,8 @@ def main() -> int:
                 "bytes": bounds[name]["bytes"],
                 "share_of_bound": bounds[name]["bound_ms"] / k[name][0],
                 "kernel_only_ms": alone[name],
-                "launches_corpus": corpus_launches.get(name, 0)}
+                "launches_corpus": corpus_launches.get(name, 0),
+                "launches_sharded": sharded["launches"].get(name, 0)}
                for name, f, rep, counts in table]
     kernels += [{"name": name, "route": "cuda", "source": src + e["file"],
                  "replaces": e["replaces"],
@@ -1226,13 +1260,15 @@ def main() -> int:
     print("chip_smoke details: " + json.dumps({**report, "chains": chains,
                                                "single_mesh": single,
                                                "corpus": corpus,
+                                               "sharded": sharded,
                                                "kernels": kernels}),
           file=sys.stderr)
     report["run_s"] = time.perf_counter() - t_start
-    print(f"chip_smoke: phases 1-13 in {report['run_s']:.1f} s")
+    print(f"chip_smoke: phases 1-14 in {report['run_s']:.1f} s")
     print(json.dumps({"single_mesh": single}))
     print(json.dumps({"chains": chains}))
     print(json.dumps({"corpus": corpus}))
+    print(json.dumps({"sharded": sharded}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1248,7 +1284,8 @@ def _phase12(torch, np, torchdraco, encode, tdev, tbatch,
     normals and UVs), encode_mesh_device_chunked (positions) and
     _encode_huge, each against encode(); K1 and K2 at the single row's
     shapes against their twins; the chunk quantize against numpy. Returns
-    (the phase's record, {kernel line name: entry})."""
+    (the phase's record, {kernel line name: entry}, what phase 14.3
+    reuses)."""
     t_phase = time.perf_counter()
     n = HUGE_GRID
     V = n * n
@@ -1432,7 +1469,7 @@ def _phase12(torch, np, torchdraco, encode, tdev, tbatch,
     pos_att = mesh1.position_attribute()
     dev_c = tbatch.device_encode_group(pos, topo, pos_att, bits=BITS,
                                        device=dev)
-    q = dev_c["q_dev"]
+    q = dev_c["q_dev"][0]
     g = tbatch._device_gathers(topo, pos_att, dev, V)
     lo = torch.from_numpy(dev_c["vmin"]).to(dev)
     hi = torch.from_numpy(dev_c["vmax"]).to(dev)
@@ -1638,7 +1675,11 @@ def _phase12(torch, np, torchdraco, encode, tdev, tbatch,
           f"{[c['cpu_scalar_divisor_mismatches'] for c in quant]}")
     one["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 12: {one['phase_s']:.1f} s")
-    return one, k12
+    # what phase 14.3 shards over the stream axis: the encoder with the
+    # grid's topology cached, the grid, its encode(), and 12.4's row
+    reuse = {"enc": enc, "mesh": mesh1, "blob": ref1, "q": q, "gathers": g,
+             "vmin": lo, "vmax": hi, "symbols": sym, "counts": counts}
+    return one, k12, reuse
 
 
 def _router_knobs(sweep: dict, chunk: int) -> dict:
@@ -1679,17 +1720,15 @@ def _router_knobs(sweep: dict, chunk: int) -> dict:
 
 def _phase13(torch, torchdraco, encode, tdev, trl, tbatch, tdb,
              reset_launch_counts, dev, sync, wall_s, smi_line, meshes,
-             meshes3):
+             meshes3, root):
     """The corpus entry points on the card, from files on disk: the
     router's sweep (13.2, run first; its knobs are compared with the
     code's, which route 13.1 and 13.3), encode_corpus three ways over a
     mixed corpus (13.1), the router's
     decisions reused from disk (13.3), decode_corpus (13.4),
-    transcode_corpus (13.5) and the torchdraco-corpus CLI (13.6). Returns
-    the phase's record."""
-    import shutil
-    import tempfile
-
+    transcode_corpus (13.5) and the torchdraco-corpus CLI (13.6), in the
+    directory ``root`` (the corpus in ``in/``, the device plane's files in
+    ``manual/``, which phase 14.4 reads). Returns the phase's record."""
     from torch.profiler import ProfilerActivity, profile
     from torchdraco.io import (DracoTranscoder, load_mesh, save_obj,
                                save_ply, save_scene_glb)
@@ -1702,290 +1741,551 @@ def _phase13(torch, torchdraco, encode, tdev, trl, tbatch, tdb,
     knobs0 = {k: getattr(Enc, k) for k in ROUTER_KNOBS}
     corpus = {"card": smi_line, "workers": CORPUS_WORKERS}
     counted = (tdev.predict_residual, tdev.histogram, trl.rans_words_scan)
-    root = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
-    try:
-        # 13.2 first: encode_meshes_device at 1 ... SWEEP_MAX meshes with
-        # either coder, against the host plane a mesh (warm)
-        widths = [1 << i for i in range(SWEEP_MAX.bit_length())
-                  if 1 << i <= SWEEP_MAX]
-        sweep = {}
-        for name, ms in (("positions", meshes),
-                         ("positions_normals_uvs", meshes3)):
-            enc = Enc(device=dev)
-            enc.encode_meshes_device(ms[:1])
-            enc.encode_mesh(ms[0])
-            k = min(SWEEP_HOST_MESHES, len(ms))
-            per_mesh = min(wall_s(lambda: [enc.encode_mesh(m)
-                                           for m in ms[:k]])[1]
-                           for _ in range(2)) / k
-            rows = []
-            for B in widths:
-                reps = 2 if B <= 64 else 1
-                got = {}
-                for ent in ("device", "host"):
-                    runs = []
-                    for _ in range(reps):
-                        got[ent], w = wall_s(
-                            lambda: enc.encode_meshes_device(ms[:B],
-                                                             entropy=ent))
-                        runs.append(w)
-                    got[ent + "_s"] = min(runs)
-                _check(got["device"] == got["host"],
-                       f"entropy='host' differs from 'device' at B={B}")
-                rows.append({"B": B, "device_entropy_s": got["device_s"],
-                             "host_entropy_s": got["host_s"],
-                             "host_plane_s": B * per_mesh})
-            sweep[name] = {"host_plane_s_per_mesh": per_mesh, "rows": rows}
-        knobs = _router_knobs(sweep, Enc.DEVICE_CHUNK)
-        drift = sorted(k for k, v in knobs.items()
-                       if not knobs0[k] / KNOB_DRIFT <= v
-                       <= knobs0[k] * KNOB_DRIFT)
-        corpus["sweep"] = sweep
-        corpus["knobs_from_sweep"] = knobs
-        corpus["knobs_in_code"] = knobs0
-        corpus["knobs_drifted"] = drift
-        print(f"phase 13.2 (run first; 13.1 and 13.3 route with the knobs "
-              f"in the code): "
-              f"encode_meshes_device walls s (entropy='device' / 'host') "
-              f"against the host plane (B x a mesh, warm), B = {widths}: "
-              + "; ".join(
-                  f"{name}: host {v['host_plane_s_per_mesh'] * 1e3:.3f} ms "
-                  f"a mesh, " + ", ".join(
-                      f"{r['B']}: {r['device_entropy_s']:.4f} / "
-                      f"{r['host_entropy_s']:.4f} vs "
-                      f"{r['host_plane_s']:.4f}" for r in v["rows"])
-                  for name, v in sweep.items())
-              + f"; knobs from the sweep {knobs}, in the code {knobs0}; "
-              f"drifted beyond {KNOB_DRIFT}x: {drift or 'none'}")
+    # 13.2 first: encode_meshes_device at 1 ... SWEEP_MAX meshes with
+    # either coder, against the host plane a mesh (warm)
+    widths = [1 << i for i in range(SWEEP_MAX.bit_length())
+              if 1 << i <= SWEEP_MAX]
+    sweep = {}
+    for name, ms in (("positions", meshes),
+                     ("positions_normals_uvs", meshes3)):
+        enc = Enc(device=dev)
+        enc.encode_meshes_device(ms[:1])
+        enc.encode_mesh(ms[0])
+        k = min(SWEEP_HOST_MESHES, len(ms))
+        per_mesh = min(wall_s(lambda: [enc.encode_mesh(m)
+                                       for m in ms[:k]])[1]
+                       for _ in range(2)) / k
+        rows = []
+        for B in widths:
+            reps = 2 if B <= 64 else 1
+            got = {}
+            for ent in ("device", "host"):
+                runs = []
+                for _ in range(reps):
+                    got[ent], w = wall_s(
+                        lambda: enc.encode_meshes_device(ms[:B],
+                                                         entropy=ent))
+                    runs.append(w)
+                got[ent + "_s"] = min(runs)
+            _check(got["device"] == got["host"],
+                   f"entropy='host' differs from 'device' at B={B}")
+            rows.append({"B": B, "device_entropy_s": got["device_s"],
+                         "host_entropy_s": got["host_s"],
+                         "host_plane_s": B * per_mesh})
+        sweep[name] = {"host_plane_s_per_mesh": per_mesh, "rows": rows}
+    knobs = _router_knobs(sweep, Enc.DEVICE_CHUNK)
+    drift = sorted(k for k, v in knobs.items()
+                   if not knobs0[k] / KNOB_DRIFT <= v
+                   <= knobs0[k] * KNOB_DRIFT)
+    corpus["sweep"] = sweep
+    corpus["knobs_from_sweep"] = knobs
+    corpus["knobs_in_code"] = knobs0
+    corpus["knobs_drifted"] = drift
+    print(f"phase 13.2 (run first; 13.1 and 13.3 route with the knobs "
+          f"in the code): "
+          f"encode_meshes_device walls s (entropy='device' / 'host') "
+          f"against the host plane (B x a mesh, warm), B = {widths}: "
+          + "; ".join(
+              f"{name}: host {v['host_plane_s_per_mesh'] * 1e3:.3f} ms "
+              f"a mesh, " + ", ".join(
+                  f"{r['B']}: {r['device_entropy_s']:.4f} / "
+                  f"{r['host_entropy_s']:.4f} vs "
+                  f"{r['host_plane_s']:.4f}" for r in v["rows"])
+              for name, v in sweep.items())
+          + f"; knobs from the sweep {knobs}, in the code {knobs0}; "
+          f"drifted beyond {KNOB_DRIFT}x: {drift or 'none'}")
 
-        # 13.1: the mixed corpus, written with the port's writers
-        src = os.path.join(root, "in")
-        os.makedirs(src)
-        _, write_s = wall_s(lambda: _write_corpus(
-            torchdraco, Scene, save_obj, save_ply, save_scene_glb, meshes3,
-            src))
-        inputs = _expand([src], ENCODE_EXTS)
-        n_groups = 1 + CORPUS_GROUPS + CORPUS_SINGLES + 1
-        _check(LONE_GRID ** 2 >= Enc.CHUNKED_MIN_VERTS << 2,
-               "the lone grid is below the router's lone-mesh threshold")
-        _check(len(inputs) <= Enc.DEVICE_CORPUS_WINDOW,
-               "the corpus spans windows")
-        cache = os.path.join(root, "route_cache.json")
+    # 13.1: the mixed corpus, written with the port's writers
+    src = os.path.join(root, "in")
+    os.makedirs(src)
+    _, write_s = wall_s(lambda: _write_corpus(
+        torchdraco, Scene, save_obj, save_ply, save_scene_glb, meshes3,
+        src))
+    inputs = _expand([src], ENCODE_EXTS)
+    n_groups = 1 + CORPUS_GROUPS + CORPUS_SINGLES + 1
+    _check(LONE_GRID ** 2 >= Enc.CHUNKED_MIN_VERTS << 2,
+           "the lone grid is below the router's lone-mesh threshold")
+    _check(len(inputs) <= Enc.DEVICE_CORPUS_WINDOW,
+           "the corpus spans windows")
+    cache = os.path.join(root, "route_cache.json")
 
-        def run(plane, out, enc=None):
-            enc = enc or Enc(use_device=plane, device=dev,
-                             route_cache_path=cache)
-            rep, secs = wall_s(lambda: enc.encode_corpus(
-                inputs, os.path.join(root, out), resume=False,
-                workers=CORPUS_WORKERS))
-            return enc, rep, secs
+    def run(plane, out, enc=None):
+        enc = enc or Enc(use_device=plane, device=dev,
+                         route_cache_path=cache)
+        rep, secs = wall_s(lambda: enc.encode_corpus(
+            inputs, os.path.join(root, out), resume=False,
+            workers=CORPUS_WORKERS))
+        return enc, rep, secs
 
-        _, rep_h, host_s = run(False, "host")
-        # the device plane, counted and traced (the trace costs it about
-        # 5% of its wall): the device's busy time and idle share
-        reset_launch_counts()
-        sync()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            enc_m, rep_m, manual_s = run(True, "manual")
-        launches_m = {fn.__name__: fn.n_launches for fn in counted}
-        spans = [(e.time_range.start, e.time_range.end)
-                 for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = _busy_us(spans)
-        trace_m = {"wall_s": manual_s, "busy_s": busy / 1e6,
-                   "device_events": len(spans),
-                   "idle_share": (1 - busy / 1e6 / manual_s) if spans
-                   else None}
-        enc_a = Enc(use_device="auto", device=dev, route_cache_path=cache)
-        huge_calls = []
-        real_huge = enc_a._encode_huge
+    _, rep_h, host_s = run(False, "host")
+    # the device plane, counted and traced (the trace costs it about
+    # 5% of its wall): the device's busy time and idle share
+    reset_launch_counts()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        enc_m, rep_m, manual_s = run(True, "manual")
+    launches_m = {fn.__name__: fn.n_launches for fn in counted}
+    spans = [(e.time_range.start, e.time_range.end)
+             for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = _busy_us(spans)
+    trace_m = {"wall_s": manual_s, "busy_s": busy / 1e6,
+               "device_events": len(spans),
+               "idle_share": (1 - busy / 1e6 / manual_s) if spans
+               else None}
+    enc_a = Enc(use_device="auto", device=dev, route_cache_path=cache)
+    huge_calls = []
+    real_huge = enc_a._encode_huge
 
-        def huge_spy(mesh, device=None):
-            huge_calls.append(mesh.position_attribute().num_points)
-            return real_huge(mesh, device=device)
-        enc_a._encode_huge = huge_spy
-        _, rep_a, auto_s = run("auto", "auto", enc_a)
+    def huge_spy(mesh, device=None):
+        huge_calls.append(mesh.position_attribute().num_points)
+        return real_huge(mesh, device=device)
+    enc_a._encode_huge = huge_spy
+    _, rep_a, auto_s = run("auto", "auto", enc_a)
 
-        def drc_files(out):
-            d = os.path.join(root, out)
-            return {f: open(os.path.join(d, f), "rb").read()
-                    for f in sorted(os.listdir(d)) if f.endswith(".drc")}
-        files = {out: drc_files(out) for out in ("host", "manual", "auto")}
-        _check(len(files["host"]) == rep_h["encoded"] and all(
-            files[o] == files["host"] for o in ("manual", "auto")),
-            "the three encode planes disagree on the .drc files")
-        _check(all(r["encoded"] == rep_h["encoded"]
-                   and r["failed"] == rep_h["failed"]
-                   for r in (rep_m, rep_a)),
-               "the reports disagree on encoded or failed")
-        failed = sorted(os.path.basename(f["path"]) for f in rep_h["failed"])
-        _check(failed == ["b0_nan.ply", "broken.glb", "s00.ply"]
-               and "non-finite" in str(rep_h["failed"]),
-               f"the broken file, the NaN vertex and the collision: "
-               f"{rep_h['failed']}")
-        _check(all(n == n_groups for n in launches_m.values()),
-               f"K1, K2 and K3 launch once per device chunk "
-               f"({n_groups}): {launches_m}")
-        by_name = {os.path.splitext(os.path.basename(p))[0] + ".drc": p
-                   for p in reversed(inputs)}
-        names = sorted(files["manual"])
-        sample = names[::max(1, len(names) // 32)][:32]
-        bad = [n for n in sample
-               if encode(load_mesh(by_name[n])) != files["manual"][n]]
-        _check(not bad, f"corpus blobs differ from encode(): {bad[:5]}")
-        routing = rep_a["routing"]
-        lone = [e for e in routing if e["verts"] == LONE_GRID ** 2]
-        _check(len(routing) == n_groups and len(lone) == 1
-               and lone[0]["plane"] == "device"
-               and huge_calls == [LONE_GRID ** 2],
-               f"the router: {len(routing)} entries for {n_groups} groups, "
-               f"lone {lone}, _encode_huge calls {huge_calls}")
-        mb_in = rep_h["total_in_bytes"] / 1e6
-        mb_out = rep_h["total_out_bytes"] / 1e6
-        corpus["encode"] = {
-            "files": len(inputs), "groups": n_groups, "write_s": write_s,
-            "mb_in": mb_in, "mb_out": mb_out, "host_s": host_s,
-            "manual_s": manual_s, "auto_s": auto_s,
-            "stages_s": {"host": rep_h["stages_s"],
-                         "manual": rep_m["stages_s"],
-                         "auto": rep_a["stages_s"]},
-            "manual_device_stages_s": dict(enc_m.timings),
-            "launches_manual": launches_m, "routing": routing,
-            "trace_manual": trace_m, "failed": rep_h["failed"]}
-        print(f"phase 13.1: encode_corpus over {len(inputs)} files "
-              f"({n_groups} topology groups, {mb_in:.1f} MB in, "
-              f"{mb_out:.2f} MB of .drc out, {CORPUS_WORKERS} workers; "
-              f"written in {write_s:.1f} s): host-only {host_s:.2f} s "
-              f"{rep_h['stages_s']}, use_device=True (traced) "
-              f"{manual_s:.2f} s {rep_m['stages_s']} (the device plane's "
-              f"{ {k: round(v, 3) for k, v in enc_m.timings.items()} }), "
-              f"use_device='auto' "
-              f"{auto_s:.2f} s {rep_a['stages_s']}; every .drc equal across "
-              f"the three, "
-              f"{len(sample)} sampled equal encode(); failed "
-              f"{failed}; launches {launches_m}; routing "
-              f"{[(e['meshes'], e['plane'], e.get('reason', 'probe')) for e in routing if e['meshes'] > 1 or e is lone[0]]}"
-              f"; the lone mesh through _encode_huge; the traced manual "
-              f"run's device busy {busy / 1e6:.3f} s over {len(spans)} "
-              f"device events, idle share {trace_m['idle_share']}")
+    def drc_files(out):
+        d = os.path.join(root, out)
+        return {f: open(os.path.join(d, f), "rb").read()
+                for f in sorted(os.listdir(d)) if f.endswith(".drc")}
+    files = {out: drc_files(out) for out in ("host", "manual", "auto")}
+    _check(len(files["host"]) == rep_h["encoded"] and all(
+        files[o] == files["host"] for o in ("manual", "auto")),
+        "the three encode planes disagree on the .drc files")
+    _check(all(r["encoded"] == rep_h["encoded"]
+               and r["failed"] == rep_h["failed"]
+               for r in (rep_m, rep_a)),
+           "the reports disagree on encoded or failed")
+    failed = sorted(os.path.basename(f["path"]) for f in rep_h["failed"])
+    _check(failed == ["b0_nan.ply", "broken.glb", "s00.ply"]
+           and "non-finite" in str(rep_h["failed"]),
+           f"the broken file, the NaN vertex and the collision: "
+           f"{rep_h['failed']}")
+    _check(all(n == n_groups for n in launches_m.values()),
+           f"K1, K2 and K3 launch once per device chunk "
+           f"({n_groups}): {launches_m}")
+    by_name = {os.path.splitext(os.path.basename(p))[0] + ".drc": p
+               for p in reversed(inputs)}
+    names = sorted(files["manual"])
+    sample = names[::max(1, len(names) // 32)][:32]
+    bad = [n for n in sample
+           if encode(load_mesh(by_name[n])) != files["manual"][n]]
+    _check(not bad, f"corpus blobs differ from encode(): {bad[:5]}")
+    routing = rep_a["routing"]
+    lone = [e for e in routing if e["verts"] == LONE_GRID ** 2]
+    _check(len(routing) == n_groups and len(lone) == 1
+           and lone[0]["plane"] == "device"
+           and huge_calls == [LONE_GRID ** 2],
+           f"the router: {len(routing)} entries for {n_groups} groups, "
+           f"lone {lone}, _encode_huge calls {huge_calls}")
+    mb_in = rep_h["total_in_bytes"] / 1e6
+    mb_out = rep_h["total_out_bytes"] / 1e6
+    corpus["encode"] = {
+        "files": len(inputs), "groups": n_groups, "write_s": write_s,
+        "mb_in": mb_in, "mb_out": mb_out, "host_s": host_s,
+        "manual_s": manual_s, "auto_s": auto_s,
+        "stages_s": {"host": rep_h["stages_s"],
+                     "manual": rep_m["stages_s"],
+                     "auto": rep_a["stages_s"]},
+        "manual_device_stages_s": dict(enc_m.timings),
+        "launches_manual": launches_m, "routing": routing,
+        "trace_manual": trace_m, "failed": rep_h["failed"]}
+    print(f"phase 13.1: encode_corpus over {len(inputs)} files "
+          f"({n_groups} topology groups, {mb_in:.1f} MB in, "
+          f"{mb_out:.2f} MB of .drc out, {CORPUS_WORKERS} workers; "
+          f"written in {write_s:.1f} s): host-only {host_s:.2f} s "
+          f"{rep_h['stages_s']}, use_device=True (traced) "
+          f"{manual_s:.2f} s {rep_m['stages_s']} (the device plane's "
+          f"{ {k: round(v, 3) for k, v in enc_m.timings.items()} }), "
+          f"use_device='auto' "
+          f"{auto_s:.2f} s {rep_a['stages_s']}; every .drc equal across "
+          f"the three, "
+          f"{len(sample)} sampled equal encode(); failed "
+          f"{failed}; launches {launches_m}; routing "
+          f"{[(e['meshes'], e['plane'], e.get('reason', 'probe')) for e in routing if e['meshes'] > 1 or e is lone[0]]}"
+          f"; the lone mesh through _encode_huge; the traced manual "
+          f"run's device busy {busy / 1e6:.3f} s over {len(spans)} "
+          f"device events, idle share {trace_m['idle_share']}")
 
-        # 13.3: the decisions reused by a fresh encoder from the disk
-        enc_b = Enc(use_device="auto", device=dev, route_cache_path=cache)
-        _, rep_b, auto2_s = run("auto", "auto2", enc_b)
-        static = ("cached decision (disk)", "small group",
-                  "single mesh (static)")
-        probed = [e for e in rep_b["routing"]
-                  if "host_s_per_mesh" in e
-                  or not str(e.get("reason", "")).startswith(static)
-                  and not str(e.get("reason", "")).startswith(
-                      "single mesh (measured")]
-        _check(not probed, f"the second auto pass probed: {probed}")
-        _check(drc_files("auto2") == files["auto"],
-               "the second auto pass differs from the first")
-        corpus["reuse"] = {"auto2_s": auto2_s, "auto_s": auto_s,
-                           "host_s": host_s, "routing": rep_b["routing"]}
-        print(f"phase 13.3: a fresh encoder on the same route cache: "
-              f"{len(rep_b['routing'])} groups, reasons "
-              f"{sorted({e['reason'] for e in rep_b['routing']})}, no probe;"
-              f" bytes equal 13.1's; auto {auto_s:.2f} s then "
-              f"{auto2_s:.2f} s against host-only {host_s:.2f} s")
+    # 13.3: the decisions reused by a fresh encoder from the disk
+    enc_b = Enc(use_device="auto", device=dev, route_cache_path=cache)
+    _, rep_b, auto2_s = run("auto", "auto2", enc_b)
+    static = ("cached decision (disk)", "small group",
+              "single mesh (static)")
+    probed = [e for e in rep_b["routing"]
+              if "host_s_per_mesh" in e
+              or not str(e.get("reason", "")).startswith(static)
+              and not str(e.get("reason", "")).startswith(
+                  "single mesh (measured")]
+    _check(not probed, f"the second auto pass probed: {probed}")
+    _check(drc_files("auto2") == files["auto"],
+           "the second auto pass differs from the first")
+    corpus["reuse"] = {"auto2_s": auto2_s, "auto_s": auto_s,
+                       "host_s": host_s, "routing": rep_b["routing"]}
+    print(f"phase 13.3: a fresh encoder on the same route cache: "
+          f"{len(rep_b['routing'])} groups, reasons "
+          f"{sorted({e['reason'] for e in rep_b['routing']})}, no probe;"
+          f" bytes equal 13.1's; auto {auto_s:.2f} s then "
+          f"{auto2_s:.2f} s against host-only {host_s:.2f} s")
 
-        # 13.4: decode_corpus over 13.1's .drc files, device and host
-        drcs = [os.path.join(root, "manual", n) for n in names]
-        bd = tdb.BatchDecoder()
-        reset_launch_counts()
-        rep_dd, dec_dev_s = wall_s(lambda: bd.decode_corpus(
-            drcs, os.path.join(root, "dec_dev"), fmt="ply",
-            workers=CORPUS_WORKERS, device=dev))
-        d1 = trl.rans_decode_lanes.n_launches
-        rep_dh, dec_host_s = wall_s(lambda: tdb.BatchDecoder().decode_corpus(
-            drcs, os.path.join(root, "dec_host"), fmt="ply",
-            workers=CORPUS_WORKERS, use_device=False))
+    # 13.4: decode_corpus over 13.1's .drc files, device and host
+    drcs = [os.path.join(root, "manual", n) for n in names]
+    bd = tdb.BatchDecoder()
+    reset_launch_counts()
+    rep_dd, dec_dev_s = wall_s(lambda: bd.decode_corpus(
+        drcs, os.path.join(root, "dec_dev"), fmt="ply",
+        workers=CORPUS_WORKERS, device=dev))
+    d1 = trl.rans_decode_lanes.n_launches
+    rep_dh, dec_host_s = wall_s(lambda: tdb.BatchDecoder().decode_corpus(
+        drcs, os.path.join(root, "dec_host"), fmt="ply",
+        workers=CORPUS_WORKERS, use_device=False))
 
-        def ply_files(out):
-            d = os.path.join(root, out)
-            return {f: open(os.path.join(d, f), "rb").read()
-                    for f in sorted(os.listdir(d)) if f.endswith(".ply")}
-        plys = ply_files("dec_dev")
-        _check(len(plys) == len(drcs) and plys == ply_files("dec_host")
-               and rep_dd["failed"] == [] and rep_dh["failed"] == [],
-               "decode_corpus: the device and host planes disagree")
-        _check(d1 > 0 and bd.n_host_blobs == 0,
-               f"decode_corpus: D1 launches {d1}, host blobs "
-               f"{bd.n_host_blobs}")
-        corpus["decode"] = {"device_s": dec_dev_s, "host_s": dec_host_s,
-                            "stages_s": {"device": rep_dd["stages_s"],
-                                         "host": rep_dh["stages_s"]},
-                            "files": len(drcs), "d1_launches": d1,
-                            "mb_out": sum(len(v) for v in plys.values())
-                            / 1e6}
-        print(f"phase 13.4: decode_corpus of {len(drcs)} .drc files to "
-              f"PLY: device {dec_dev_s:.2f} s {rep_dd['stages_s']} ({d1} "
-              f"D1 launches, 0 host blobs) against host-only "
-              f"{dec_host_s:.2f} s; every file equal")
+    def ply_files(out):
+        d = os.path.join(root, out)
+        return {f: open(os.path.join(d, f), "rb").read()
+                for f in sorted(os.listdir(d)) if f.endswith(".ply")}
+    plys = ply_files("dec_dev")
+    _check(len(plys) == len(drcs) and plys == ply_files("dec_host")
+           and rep_dd["failed"] == [] and rep_dh["failed"] == [],
+           "decode_corpus: the device and host planes disagree")
+    _check(d1 > 0 and bd.n_host_blobs == 0,
+           f"decode_corpus: D1 launches {d1}, host blobs "
+           f"{bd.n_host_blobs}")
+    corpus["decode"] = {"device_s": dec_dev_s, "host_s": dec_host_s,
+                        "stages_s": {"device": rep_dd["stages_s"],
+                                     "host": rep_dh["stages_s"]},
+                        "files": len(drcs), "d1_launches": d1,
+                        "mb_out": sum(len(v) for v in plys.values())
+                        / 1e6}
+    print(f"phase 13.4: decode_corpus of {len(drcs)} .drc files to "
+          f"PLY: device {dec_dev_s:.2f} s {rep_dd['stages_s']} ({d1} "
+          f"D1 launches, 0 host blobs) against host-only "
+          f"{dec_host_s:.2f} s; every file equal")
 
-        # 13.5: transcode_corpus over GLBs of shared primitives
-        tsrc = os.path.join(root, "glb_in")
-        os.makedirs(tsrc)
-        glbs = _write_glb_corpus(torchdraco, Scene, save_scene_glb, tsrc)
-        tin = glbs + [glbs[0], os.path.join(tsrc, "broken.glb")]
-        reset_launch_counts()
-        rep_td, tr_dev_s = wall_s(lambda: transcode_corpus(
-            tin, os.path.join(root, "tr_dev"), device=dev))
-        launches_t = {fn.__name__: fn.n_launches for fn in counted}
-        rep_th, tr_host_s = wall_s(lambda: transcode_corpus(
-            tin, os.path.join(root, "tr_host"), use_device=False))
+    # 13.5: transcode_corpus over GLBs of shared primitives
+    tsrc = os.path.join(root, "glb_in")
+    os.makedirs(tsrc)
+    glbs = _write_glb_corpus(torchdraco, Scene, save_scene_glb, tsrc)
+    tin = glbs + [glbs[0], os.path.join(tsrc, "broken.glb")]
+    reset_launch_counts()
+    rep_td, tr_dev_s = wall_s(lambda: transcode_corpus(
+        tin, os.path.join(root, "tr_dev"), device=dev))
+    launches_t = {fn.__name__: fn.n_launches for fn in counted}
+    rep_th, tr_host_s = wall_s(lambda: transcode_corpus(
+        tin, os.path.join(root, "tr_host"), use_device=False))
 
-        def glb_files(out):
-            d = os.path.join(root, out)
-            return {f: open(os.path.join(d, f), "rb").read()
-                    for f in sorted(os.listdir(d)) if f.endswith(".glb")}
-        out_dev = glb_files("tr_dev")
-        one_path = os.path.join(root, "one.glb")
-        DracoTranscoder().transcode_file(glbs[0], one_path)
-        _check(len(out_dev) == len(glbs) and out_dev == glb_files("tr_host")
-               and rep_td["transcoded"] == len(glbs)
-               and len(rep_td["failed"]) == 1,
-               f"transcode_corpus: the planes disagree ({rep_td})")
-        _check(rep_td["encoder_hook_misses"] == 0,
-               f"transcode_corpus: hook misses ({rep_td})")
-        _check(open(one_path, "rb").read()
-               == out_dev[os.path.basename(glbs[0])],
-               "transcode_corpus differs from DracoTranscoder")
-        _check(min(launches_t.values()) > 0
-               and len(set(launches_t.values())) == 1,
-               f"transcode launches {launches_t}")
-        corpus["transcode"] = {
-            "files": len(glbs), "device_s": tr_dev_s, "host_s": tr_host_s,
-            "launches": launches_t, "mb_in": rep_td["total_in_bytes"] / 1e6,
-            "mb_out": rep_td["total_out_bytes"] / 1e6}
-        print(f"phase 13.5: transcode_corpus of {len(glbs)} GLBs (+ a "
-              f"duplicate input and a broken file): device {tr_dev_s:.2f} s "
-              f"(launches {launches_t}, 0 hook misses) against "
-              f"host-only {tr_host_s:.2f} s; every GLB equal, and equal to "
-              f"DracoTranscoder")
+    def glb_files(out):
+        d = os.path.join(root, out)
+        return {f: open(os.path.join(d, f), "rb").read()
+                for f in sorted(os.listdir(d)) if f.endswith(".glb")}
+    out_dev = glb_files("tr_dev")
+    one_path = os.path.join(root, "one.glb")
+    DracoTranscoder().transcode_file(glbs[0], one_path)
+    _check(len(out_dev) == len(glbs) and out_dev == glb_files("tr_host")
+           and rep_td["transcoded"] == len(glbs)
+           and len(rep_td["failed"]) == 1,
+           f"transcode_corpus: the planes disagree ({rep_td})")
+    _check(rep_td["encoder_hook_misses"] == 0,
+           f"transcode_corpus: hook misses ({rep_td})")
+    _check(open(one_path, "rb").read()
+           == out_dev[os.path.basename(glbs[0])],
+           "transcode_corpus differs from DracoTranscoder")
+    _check(min(launches_t.values()) > 0
+           and len(set(launches_t.values())) == 1,
+           f"transcode launches {launches_t}")
+    corpus["transcode"] = {
+        "files": len(glbs), "device_s": tr_dev_s, "host_s": tr_host_s,
+        "launches": launches_t, "mb_in": rep_td["total_in_bytes"] / 1e6,
+        "mb_out": rep_td["total_out_bytes"] / 1e6}
+    print(f"phase 13.5: transcode_corpus of {len(glbs)} GLBs (+ a "
+          f"duplicate input and a broken file): device {tr_dev_s:.2f} s "
+          f"(launches {launches_t}, 0 hook misses) against "
+          f"host-only {tr_host_s:.2f} s; every GLB equal, and equal to "
+          f"DracoTranscoder")
 
-        # 13.6: the CLI, with no flags: the card
-        cli_out = os.path.join(root, "cli")
-        proc, cli_s = wall_s(lambda: subprocess.run(
-            [sys.executable, "-m", "torchdraco.tools.corpus", "encode",
-             "-i", src, "-o", cli_out, *CLI_DEVICE_ARGS],
-            capture_output=True, text=True, timeout=600, cwd=ROOT))
-        _check(proc.returncode == 1, f"the CLI exits 1 on the three failed "
-               f"files: rc {proc.returncode}, "
-               f"{proc.stderr[-2000:]}")
-        _check(drc_files("cli") == files["manual"],
-               "the CLI's .drc files differ from 13.1's")
-        corpus["cli_s"] = cli_s
-        print(f"phase 13.6: python -m torchdraco.tools.corpus encode "
-              f"{' '.join(CLI_DEVICE_ARGS) or '(no flags)'}: {cli_s:.2f} s "
-              f"in its own process, rc 1 (the three failed files), every .drc "
-              f"equal 13.1's")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    # 13.6: the CLI, with no flags: the card
+    cli_out = os.path.join(root, "cli")
+    proc, cli_s = wall_s(lambda: subprocess.run(
+        [sys.executable, "-m", "torchdraco.tools.corpus", "encode",
+         "-i", src, "-o", cli_out, *CLI_DEVICE_ARGS],
+        capture_output=True, text=True, timeout=600, cwd=ROOT))
+    _check(proc.returncode == 1, f"the CLI exits 1 on the three failed "
+           f"files: rc {proc.returncode}, "
+           f"{proc.stderr[-2000:]}")
+    _check(drc_files("cli") == files["manual"],
+           "the CLI's .drc files differ from 13.1's")
+    corpus["cli_s"] = cli_s
+    print(f"phase 13.6: python -m torchdraco.tools.corpus encode "
+          f"{' '.join(CLI_DEVICE_ARGS) or '(no flags)'}: {cli_s:.2f} s "
+          f"in its own process, rc 1 (the three failed files), every .drc "
+          f"equal 13.1's")
     corpus["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 13: {corpus['phase_s']:.1f} s")
     return corpus
+
+
+def _phase14(torch, np, torchdraco, tdev, trl, tbatch, reset_launch_counts,
+             wall_s, cuda_ms, kernel_only_ms, smi_line, meshes3, blobs3,
+             dev_runs10, lanes6, reuse12, corpus_root):
+    """Several devices, as shards of an axis that names the one card
+    n times (n distinct cards where the machine has them): the batch cell
+    over n = SHARDS (14.1), the lane coder over phase 6's lanes (14.2),
+    phase 12's grid over the stream axis (14.3), phase 13's corpus in two
+    processes joined by gloo, through the function and the CLI (14.4),
+    and dryrun_multichip (14.5). Every result equals its unsharded
+    counterpart's. Returns the phase's record."""
+    import socket
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+
+    def axis_of(n):
+        return ([f"cuda:{i}" for i in range(n)] if n_cards >= n
+                else ["cuda:0"] * n)
+    rec = {"card": smi_line, "cards": n_cards,
+           "axes": {n: axis_of(n) for n in (*SHARDS, STREAM_SHARDS)}}
+    print(f"phase 14: shard axes {rec['axes']} ({n_cards} card(s))")
+    counted = (tdev.predict_residual, tdev.histogram, trl.rans_words_scan)
+
+    # 14.1: the batch cell, both coders, counted
+    batch = {}
+    for n in SHARDS:
+        for ent in ("device", "host"):
+            enc = tbatch.BatchEncoder(mesh_axis=axis_of(n))
+            reset_launch_counts()
+            got, first_s = wall_s(lambda: enc.encode_meshes_device(
+                meshes3, entropy=ent))
+            launches = {fn.__name__: fn.n_launches for fn in counted}
+            per = n * -(-len(meshes3) // enc.DEVICE_CHUNK)
+            want = {"predict_residual": per, "histogram": per,
+                    "rans_words_scan": per if ent == "device" else 0}
+            _check(launches == want, f"14.1 n={n} entropy={ent}: launches "
+                   f"{launches}, want {want}")
+            _check(enc.n_host_attributes == 0,
+                   f"14.1: {enc.n_host_attributes} host attributes")
+            bad = [i for i, (a, b) in enumerate(zip(got, blobs3)) if a != b]
+            _check(len(got) == len(blobs3) and not bad,
+                   f"14.1 n={n} entropy={ent}: {len(bad)} blobs differ from "
+                   f"phase 10's (first {bad[:5]})")
+            warm, warm_s = wall_s(lambda: enc.encode_meshes_device(
+                meshes3, entropy=ent))
+            _check(warm == blobs3, f"14.1 n={n}: a warm run differs")
+            batch[f"n{n}_{ent}"] = {"first_call_s": first_s,
+                                    "warm_s": warm_s, "launches": launches,
+                                    "stages_s": dict(enc.timings)}
+    rec["batch"] = batch
+    rec["launches"] = dict(batch[f"n{SHARDS[-1]}_device"]["launches"])
+    print(f"phase 14.1: encode_meshes_device over axes of {SHARDS} on "
+          f"{len(meshes3)} pos+normal+UV meshes, both coders: every blob "
+          f"equals phase 10's, 0 host attributes, K1/K2/K3 n a chunk; warm "
+          f"s " + ", ".join(f"{k} {v['warm_s']:.3f} (first "
+                            f"{v['first_call_s']:.3f})"
+                            for k, v in batch.items())
+          + f" against phase 10's unsharded {min(dev_runs10):.3f}")
+
+    # 14.2: the lane coder over phase 6's lanes, both engines, per-lane
+    # and shared tables
+    lanes_dev, f6, c6, len6, bufs_d, nb_d = lanes6
+    axis = axis_of(SHARDS[-1])
+    counts = np.bincount(lanes_dev.cpu().numpy().ravel())
+    from torchdraco.entropy.rans import normalize_freq_counts
+    dist = normalize_freq_counts(counts, LANE_P)
+    cums = np.concatenate([[0], np.cumsum(dist)[:-1]])
+    shared = trl.rans_encode_lanes(lanes_dev, dist, cums, len6,
+                                   precision=LANE_P)
+    lanes = {}
+    for tables, (f, c), want in (("per_lane", (f6, c6), (bufs_d, nb_d)),
+                                 ("shared", (dist, cums), shared)):
+        for dense in (False, True):
+            reset_launch_counts()
+            got, secs = wall_s(lambda: trl.rans_encode_lanes(
+                lanes_dev, f, c, len6, precision=LANE_P, dense=dense,
+                mesh_axis=axis))
+            name = "rans_scan_dense" if dense else "rans_words_scan"
+            n_l = getattr(trl, name).n_launches
+            _check(n_l == len(axis), f"14.2 {tables} {name}: {n_l} launches")
+            _check(all(np.array_equal(a, b) for a, b in zip(got, want)),
+                   f"14.2 {tables} dense={dense}: bytes differ")
+            lanes[f"{tables}_{name}"] = {"s": secs, "launches": n_l}
+            if dense:
+                rec["launches"]["rans_scan_dense"] = n_l
+    # K3 alone on one shard's lanes against all of them: a lane is a
+    # chain of dependent steps, so a quarter of the lanes should take
+    # about the whole time, and n shards on one card n times it
+    L = lanes_dev.shape[0]
+    k3_ms = {}
+    for rows in (L // len(axis), L):
+        args = (lanes_dev[:rows].to(torch.int32).flip(1).contiguous(),
+                f6[:rows].to(torch.int32).contiguous(),
+                c6[:rows].to(torch.int32).contiguous(),
+                torch.full((rows,), LANE_P, dtype=torch.int32,
+                           device=lanes_dev.device),
+                len6[:rows].to(torch.int32).contiguous())
+        k3_ms[rows] = cuda_ms(lambda: trl.rans_words_scan(*args), 5)
+    lanes["k3_ms_by_lanes"] = k3_ms
+    rec["lanes"] = lanes
+    print(f"phase 14.2: rans_encode_lanes over {len(axis)} shards of "
+          f"{L} lanes x {lanes_dev.shape[1]}: per-lane tables equal phase "
+          f"6's bytes, the shared table the unsharded call's, both "
+          f"engines, one launch a shard; s "
+          f"{ {k: round(v['s'], 4) for k, v in lanes.items() if 's' in v} }"
+          f"; K3 ms by lanes {k3_ms}")
+
+    # 14.3: phase 12's grid over the stream axis, on its encoder
+    enc, mesh = reuse12["enc"], reuse12["mesh"]
+    axis = axis_of(STREAM_SHARDS)
+    host_blob, host_s = wall_s(lambda: enc.encode_mesh(mesh))
+    _check(host_blob == reuse12["blob"], "14.3: encode_mesh differs")
+    reset_launch_counts()
+    blob, first_s = wall_s(lambda: enc.encode_mesh_device_stream_sharded(
+        mesh, axis))
+    launches = {fn.__name__: fn.n_launches for fn in counted[:2]}
+    _check(blob == host_blob, "14.3: the stream-sharded blob differs from "
+           "the host plane's")
+    _check(launches == {"predict_residual": len(axis),
+                        "histogram": len(axis)},
+           f"14.3: launches {launches}")
+    warm = []
+    for _ in range(2):
+        b, secs = wall_s(lambda: enc.encode_mesh_device_stream_sharded(
+            mesh, axis))
+        _check(b == host_blob, "14.3: a warm run differs")
+        warm.append(secs)
+    stages = dict(enc.timings)
+    parts, summed = tdev.encode_step_stream_sharded(
+        reuse12["q"], reuse12["gathers"], reuse12["vmin"], reuse12["vmax"],
+        bits=BITS, mesh_axis=axis)
+    _check(torch.equal(summed, reuse12["counts"]),
+           "14.3: the summed histogram differs from phase 12's K2 row")
+    _check(torch.equal(torch.cat(parts, dim=1), reuse12["symbols"]),
+           "14.3: the segments differ from phase 12's K1 row")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bins = tdev.default_hist_bins(BITS)
+    splits = [tdev.histogram_splits(1, p.numel(), bins, sms) for p in parts]
+    # K2 on one segment (fewer blocks than the card has SMs) beside the
+    # whole row: by the wrapper (CUDA events) and alone (a trace)
+    seg_row = parts[0].reshape(1, -1)
+    whole_row = reuse12["symbols"].reshape(1, -1)
+    k2_seg = {}
+    for name, row in (("segment", seg_row), ("whole_row", whole_row)):
+        k2_seg[name] = {
+            "symbols": int(row.numel()),
+            "blocks": tdev.histogram_splits(1, row.numel(), bins, sms),
+            "ms": cuda_ms(lambda: tdev.histogram(row, bins), 20),
+            "kernel_only_ms": kernel_only_ms(
+                lambda: tdev.histogram(row, bins), "histogram_smem_kernel",
+                reps=10)}
+    rec["stream"] = {"first_call_s": first_s, "warm_s": warm,
+                     "stages_s": stages, "host_plane_s": host_s,
+                     "launches": launches, "k2_blocks_a_segment": splits,
+                     "k2_blocks_whole_row": tdev.histogram_splits(
+                         1, reuse12["symbols"].numel(), bins, sms),
+                     "k2_segment_against_row": k2_seg}
+    print(f"phase 14.3: encode_mesh_device_stream_sharded, "
+          f"{mesh.position_attribute().num_points} vertices over "
+          f"{len(axis)} segments: equals encode_mesh ({host_s:.3f} s); "
+          f"launches {launches}; the summed histogram equals phase 12's K2 "
+          f"row and the segments its K1 row; first call {first_s:.3f} s, "
+          f"warm {[round(x, 3) for x in warm]} s "
+          f"{ {k: round(v, 3) for k, v in stages.items()} }; K2 blocks a "
+          f"segment {splits} against {rec['stream']['k2_blocks_whole_row']} "
+          f"for the whole row on {sms} SMs; K2 ms (wrapper, alone) a "
+          f"segment {k2_seg['segment']['ms']:.4f}, "
+          f"{k2_seg['segment']['kernel_only_ms']:.4f}, the whole row "
+          f"{k2_seg['whole_row']['ms']:.4f}, "
+          f"{k2_seg['whole_row']['kernel_only_ms']:.4f}")
+
+    # 14.4: phase 13's corpus in two processes joined by gloo on localhost
+    src = os.path.join(corpus_root, "in")
+
+    def drc_files(d):
+        return {f: open(os.path.join(d, f), "rb").read()
+                for f in sorted(os.listdir(d)) if f.endswith(".drc")}
+    want = drc_files(os.path.join(corpus_root, "manual"))
+
+    def two_ranks(cmd):
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        procs = [subprocess.Popen(
+            cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                                WORLD_SIZE="2", MASTER_ADDR="localhost",
+                                MASTER_PORT=str(port),
+                                TORCHDRACO_ROUTE_CACHE=""))
+            for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=MH_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        return [(p.returncode, *o) for p, o in zip(procs, outs)]
+
+    mh = {}
+    out = os.path.join(corpus_root, "multihost")
+    code = "\n".join((
+        f"import json, sys; sys.path.insert(0, {ROOT!r})",
+        "import torch.distributed as dist",
+        "from torchdraco.parallel import (encode_corpus_multihost, "
+        "init_distributed)",
+        "from torchdraco.tools.corpus import ENCODE_EXTS, _expand",
+        "init_distributed()",
+        f"rep = encode_corpus_multihost(_expand([{src!r}], ENCODE_EXTS), "
+        f"{out!r}, workers={CORPUS_WORKERS // 2}, device={MH_DEVICE!r})",
+        "print(json.dumps(rep))",
+        "dist.destroy_process_group()"))
+    for how, cmd, d in (
+            ("function", [sys.executable, "-c", code], out),
+            ("cli", [sys.executable, "-m", "torchdraco.tools.corpus",
+                     "encode", "-i", src, "-o",
+                     os.path.join(corpus_root, "multihost_cli"),
+                     "--workers", str(CORPUS_WORKERS // 2),
+                     *CLI_DEVICE_ARGS],
+             os.path.join(corpus_root, "multihost_cli"))):
+        runs, secs = wall_s(lambda: two_ranks(cmd))
+        reports = []
+        for rc, text, err in runs:
+            _check(rc in (0, 1), f"14.4 {how}: a rank exited {rc}: "
+                   f"{err[-2000:]}")
+            try:  # the rank's report: its whole standard output
+                reports.append(json.loads(text))
+            except ValueError:
+                _fail(f"14.4 {how}: no report from a rank: {text[-500:]} "
+                      f"{err[-2000:]}")
+            _check(rc == (1 if how == "cli" and reports[-1]["failed"]
+                          else 0), f"14.4 {how}: rc {rc}, "
+                   f"{reports[-1]['failed']}")
+        got = drc_files(d)
+        _check(got == want, f"14.4 {how}: the two ranks' .drc files differ "
+               f"from 13.1's ({len(got)} against {len(want)})")
+        _check(all(r["num_hosts"] == 2 and r["encoded"] == len(want)
+                   and r["total_out_bytes"] == sum(map(len, want.values()))
+                   for r in reports),
+               f"14.4 {how}: the merged totals "
+               f"{[(r.get('num_hosts'), r['encoded']) for r in reports]}")
+        failed = sorted(os.path.basename(f["path"])
+                        for r in reports for f in r["failed"])
+        _check(failed == ["b0_nan.ply", "broken.glb", "s00.ply"],
+               f"14.4 {how}: failed {failed}")
+        mh[how] = {"s": secs, "per_rank_s": [r["seconds"] for r in reports],
+                   "failed_per_rank": [len(r["failed"]) for r in reports]}
+    rec["multihost"] = mh
+    print(f"phase 14.4: encode_corpus_multihost, 2 processes on gloo "
+          f"(function {mh['function']['s']:.2f} s, ranks "
+          f"{mh['function']['per_rank_s']} s; the CLI under WORLD_SIZE=2 "
+          f"{mh['cli']['s']:.2f} s, ranks {mh['cli']['per_rank_s']} s): "
+          f"{len(want)} .drc files equal 13.1's, both ranks report the "
+          f"merged totals with num_hosts 2, the three failed inputs "
+          f"reported once")
+
+    # 14.5
+    _, dry_s = wall_s(lambda: torchdraco.dryrun_multichip(4))
+    rec["dryrun_s"] = dry_s
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 14.5: dryrun_multichip(4) in {dry_s:.2f} s")
+    print(f"phase 14: {rec['phase_s']:.1f} s")
+    return rec
 
 
 def _write_corpus(torchdraco, Scene, save_obj, save_ply, save_scene_glb,

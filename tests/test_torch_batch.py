@@ -95,6 +95,10 @@ assert "torchdraco.ops.texcoords" in sys.modules
 # the corpus entry points, the io copies and the CLIs load too
 import torchdraco.io, torchdraco.parallel.transcode
 import torchdraco.tools.cli, torchdraco.tools.corpus
+# and the several-device plane: the multi-process corpus, and the sharded
+# paths on an axis of two CPU shards
+import torchdraco.parallel.multihost
+torchdraco.dryrun_multichip(2, device="cpu")
 foreign = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "tpudraco"))
 print(json.dumps({{"foreign": foreign,
@@ -442,7 +446,7 @@ def test_risky_uv_rows_take_the_host_for_that_mesh_only(monkeypatch):
     """A mesh the UV chain flags risky keeps its position and normal
     entries and has its UVs coded by the host; the bytes are encode()'s."""
     meshes = _grid_meshes3(7, 4, 3)
-    real = tbatch.uv_encode_chain
+    real = tbatch.uv_encode_chain_sharded
 
     def flag_one(*a, **kw):
         out = list(real(*a, **kw))
@@ -451,7 +455,7 @@ def test_risky_uv_rows_take_the_host_for_that_mesh_only(monkeypatch):
         out[0] = out[0].copy()
         out[0][2] = 0  # the risky mesh's symbols are not to be used
         return tuple(out)
-    monkeypatch.setattr(tbatch, "uv_encode_chain", flag_one)
+    monkeypatch.setattr(tbatch, "uv_encode_chain_sharded", flag_one)
     enc = tbatch.BatchEncoder()
     got = enc.encode_meshes_device(meshes, device="cpu")
     assert got == [encode(m) for m in meshes]
@@ -464,7 +468,7 @@ def test_chain_error_propagates(monkeypatch, chain):
     group is re-encoded on the host."""
     def boom(*a, **kw):
         raise RuntimeError(f"{chain} broke")
-    monkeypatch.setattr(tbatch, chain, boom)
+    monkeypatch.setattr(tbatch, f"{chain}_sharded", boom)
     with pytest.raises(RuntimeError, match=f"{chain} broke"):
         tbatch.BatchEncoder().encode_meshes_device(_grid_meshes3(6, 2, 0),
                                                    device="cpu")
@@ -490,8 +494,10 @@ def test_chunks_share_the_uploaded_positions(monkeypatch):
     assert tbatch.BatchEncoder().encode_meshes_device(
         meshes, device="cpu") == want
     assert [idxs for idxs, _ in seen] == [[0, 1], [2, 3], [4]]
-    assert all(isinstance(q, torch.Tensor) and q.dtype == torch.uint16
-               and q.shape[0] == len(idxs) for idxs, q in seen)
+    # one shard: the axis is the one device
+    assert all(len(q) == 1 and isinstance(q[0], torch.Tensor)
+               and q[0].dtype == torch.uint16 and q[0].shape[0] == len(idxs)
+               for idxs, q in seen)
     # per chunk: the positions once, the UVs once
     assert [s[-1] for s in quantized] == [3, 2] * 3
 

@@ -487,6 +487,13 @@ def test_transcode_corpus_matches_tpudraco(tmp_path, cfg_kind):
                                    use_device=False)
     assert _files(str(tmp_path / "host"), ".glb") == got
     assert "encoder_hook_misses" not in host
+    # the device plane over a shard axis of three: the same files
+    sharded = ttrans.transcode_corpus(inputs, str(tmp_path / "sharded"),
+                                      cfg=pcfg, device="cpu",
+                                      mesh_axis=["cpu"] * 3)
+    assert _files(str(tmp_path / "sharded"), ".glb") == got
+    assert sharded.get("encoder_hook_misses") == rep.get(
+        "encoder_hook_misses")
 
 
 def test_mesh_content_key_matches_tpudraco():

@@ -438,3 +438,70 @@ def test_single_mesh_routes_on_the_card(cuda):
     assert enc.n_host_attributes == 0
     assert enc.encode_mesh_device_chunked(m1, chunk=1 << 13) == encode(m1)
     assert enc.encode_mesh_device(m1) == encode(m1)
+
+
+@pytest.mark.parametrize("entropy", ("device", "host"))
+def test_sharded_group_encode_on_the_card(cuda, entropy):
+    """Two shards on one card: 7 meshes with normals and UVs split 4 + 3,
+    K1, K2 (and K3 with entropy="device") launched once a shard, the
+    joined step and the blobs equal to the unsharded ones."""
+    axis = ["cuda:0"] * 2
+    pos, faces = torchdraco.make_mesh_batch(7, 12, seed=4)
+    nrm, uvs = torchdraco.make_normal_uv_batch(pos, 12, 5)
+    meshes = torchdraco.build_meshes(pos, faces, nrm, uvs)
+    topo = tbatch.PreparedTopology(meshes[0])
+    att = meshes[0].position_attribute()
+    whole = tbatch.device_encode_group(pos, topo, att, device=cuda)
+    got = tbatch.device_encode_group(pos, topo, att, mesh_axis=axis)
+    for k in ("symbols", "counts", "q_dev"):
+        assert torch.equal(torch.cat(got[k]), whole[k][0])
+    want = tbatch.BatchEncoder().encode_meshes_device(meshes, entropy=entropy)
+    counted = (tdev.predict_residual, tdev.histogram, trl.rans_words_scan)
+    before = [fn.n_launches for fn in counted]
+    enc = tbatch.BatchEncoder(mesh_axis=axis)
+    assert enc.encode_meshes_device(meshes, entropy=entropy) == want
+    assert enc.n_host_attributes == 0
+    assert [fn.n_launches - n for fn, n in zip(counted, before)] == [
+        2, 2, 2 if entropy == "device" else 0]
+
+
+def test_shards_on_distinct_cards(cuda):
+    """An axis of two distinct cards: every wrapper launches on its
+    tensor's card, so the sharded bytes equal encode()'s with both
+    coders, the dry run's oracles hold, and D1 decodes on the second
+    card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards (torch.cuda.device_count() < 2)")
+    axis = ["cuda:0", "cuda:1"]
+    torchdraco.dryrun_multichip(2)
+    pos, faces = torchdraco.make_mesh_batch(5, 12, seed=8)
+    nrm, uvs = torchdraco.make_normal_uv_batch(pos, 12, 9)
+    meshes = torchdraco.build_meshes(pos, faces, nrm, uvs)
+    want = [encode(m) for m in meshes]
+    for entropy in ("device", "host"):
+        assert tbatch.BatchEncoder(mesh_axis=axis).encode_meshes_device(
+            meshes, entropy=entropy) == want
+    out = BatchDecoder().decode_blobs_shared_topology(
+        want, entropy="device", device="cuda:1")
+    for blob, got in zip(want, out):
+        assert np.array_equal(got.attributes[0].values,
+                              decode(blob).attributes[0].values)
+
+
+def test_stream_sharded_mesh_on_the_card(cuda):
+    """A 257 x 257 grid over two stream shards on one card: the segments'
+    symbols and summed counts equal the unsharded step's, and the blob
+    equals encode()."""
+    axis = ["cuda:0"] * 2
+    pos, faces = torchdraco.make_mesh_batch(1, 257, seed=6)
+    mesh = torchdraco.build_meshes(pos, faces)[0]
+    enc = tbatch.BatchEncoder()
+    assert enc.encode_mesh_device_stream_sharded(mesh, axis) == encode(mesh)
+    _, topo = enc._topo_for(mesh)
+    att = mesh.position_attribute()
+    whole = tbatch.device_encode_group(pos, topo, att, device=cuda)
+    parts, counts = tdev.encode_step_stream_sharded(
+        whole["q"], tbatch._device_gathers(topo, att, cuda, att.num_points),
+        whole["vmin"], whole["vmax"], bits=11, mesh_axis=axis)
+    assert torch.equal(torch.cat(parts, dim=1), whole["symbols"][0])
+    assert torch.equal(counts, whole["counts"][0])

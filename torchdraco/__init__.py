@@ -23,6 +23,13 @@ and the NORMAL and TEX_COORD chains of both, plain functions on tensors
 
   ops/normals.py            normal_encode_chain, normal_decode_chain
   ops/texcoords.py          uv_encode_chain
+
+Several devices: a shard axis (``mesh_axis``, device.py ``resolve_axis``)
+splits the batch path, the lane coder, the encode chains
+(``*_sharded``) and one mesh's traversal
+(``encode_mesh_device_stream_sharded``); parallel/multihost.py runs the
+corpus over processes; ``dryrun_multichip`` holds all of it to the
+unsharded results.
 """
 
 from __future__ import annotations
@@ -121,3 +128,96 @@ def entry(device=None):
         return encode_step_from_q_cuda(q_dev, gathers, vmin, vmax, bits=11)
 
     return fn, (torch.from_numpy(q).to(dev),)
+
+
+def dryrun_multichip(n_devices: int, device=None) -> None:
+    """The several-device plane on a shard axis of ``n_devices``, the
+    counterpart of ``__graft_entry__.dryrun_multichip``: n distinct cards
+    where the machine has them, else ``resolve(device)`` n times (None:
+    the card; ``"cpu"`` runs the plain twins). Raises RuntimeError where a
+    result diverges; prints one line where none does. The oracles, in
+    tpudraco's order:
+
+    - the step on a dp x sp grid (dp = n / 2 for an even n above 1, else
+      n; sp = n / dp): batches split over dp rows, the traversal of each
+      over sp devices, the histograms summed over the stream axis, against
+      the step on one device;
+    - ``BatchEncoder(mesh_axis=)`` over all n devices against ``encode()``
+      with both coders, then with normals and UVs through the sharded
+      chains, then at ``-qp`` 8, 11, 15 (uint16 upload) and 18 (int32);
+    - ``encode_mesh_device_stream_sharded`` over all n against
+      ``encode()``."""
+    import torch
+
+    from .device import resolve, shard_bounds
+    from .encode import Config, encode
+    from .models import AttributeType
+    from .ops import encode_step_from_q_cuda, encode_step_stream_sharded
+    from .parallel.batch import (BatchEncoder, PreparedTopology,
+                                 device_encode_group)
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise RuntimeError(f"dryrun_multichip: {what}")
+
+    dev = resolve(device)
+    if dev.type == "cuda" and torch.cuda.device_count() >= n_devices > 1:
+        axis = [torch.device("cuda", i) for i in range(n_devices)]
+    else:
+        axis = [dev] * n_devices
+    dp = n_devices // 2 if n_devices % 2 == 0 and n_devices > 1 \
+        else n_devices
+    sp = n_devices // dp
+    grid = [axis[r * sp:(r + 1) * sp] for r in range(dp)]
+
+    batch = 2 * dp
+    positions, faces = make_mesh_batch(batch=batch, n=8)
+    meshes = build_meshes(positions, faces)
+    topo = PreparedTopology(meshes[0])
+    pos_att = meshes[0].position_attribute()
+    ref = device_encode_group(positions, topo, pos_att, bits=11,
+                              device=axis[0])
+    q, vmin, vmax = ref["q"], ref["vmin"], ref["vmax"]
+    gathers = topo.dev_gathers[str(axis[0])]
+    syms, counts = [], []
+    for r, (a, b) in enumerate(shard_bounds(batch, dp)):
+        parts, cnt = encode_step_stream_sharded(
+            q[a:b], gathers, vmin[a:b], vmax[a:b], bits=11,
+            mesh_axis=grid[r])
+        syms.append(torch.cat([p.to(axis[0]) for p in parts], dim=1))
+        counts.append(cnt.to(axis[0]))
+    want_s, want_c = encode_step_from_q_cuda(
+        ref["q_dev"][0], gathers, torch.from_numpy(vmin).to(axis[0]),
+        torch.from_numpy(vmax).to(axis[0]), bits=11)
+    check(torch.equal(torch.cat(syms), want_s),
+          "sharded symbols diverge from the single-device step")
+    check(torch.equal(torch.cat(counts), want_c),
+          "summed histograms diverge from the single-device step")
+
+    few = meshes[:4]
+    for entropy in ("host", "device"):
+        got = BatchEncoder(mesh_axis=axis).encode_meshes_device(
+            few, entropy=entropy)
+        check(got == [encode(m) for m in few],
+              f"sharded batch bytes (entropy={entropy!r}) diverge from "
+              "encode()")
+    nrm, uvs = make_normal_uv_batch(positions[:4], 8, seed=5)
+    textured = build_meshes(positions[:4], faces, nrm, uvs)
+    enc = BatchEncoder(mesh_axis=axis)
+    got = enc.encode_meshes_device(textured)
+    check(got == [encode(m) for m in textured] and enc.n_host_attributes == 0,
+          "sharded NORMAL/UV chain bytes diverge from encode()")
+    for depth in (8, 11, 15, 18):
+        cfg = Config(quant_bits={AttributeType.POSITION: depth})
+        got = BatchEncoder(mesh_axis=axis, cfg=cfg).encode_meshes_device(few)
+        check(got == [encode(m, cfg=cfg) for m in few],
+              f"sharded bytes at -qp {depth} diverge from encode()")
+    blob = BatchEncoder().encode_mesh_device_stream_sharded(meshes[0], axis)
+    check(blob == encode(meshes[0]),
+          "stream-sharded single-mesh bytes diverge from encode()")
+    print(f"dryrun_multichip OK: {n_devices} shards on "
+          f"{[str(d) for d in axis]}, grid {dp}x{sp}; step symbols "
+          f"{tuple(want_s.shape)} and histograms {tuple(want_c.shape)} equal "
+          f"the single-device step; {len(few)} meshes equal encode() with "
+          f"both coders, {len(textured)} with normals and UVs, and at -qp "
+          f"8, 11, 15 and 18; the stream-sharded mesh equals encode()")

@@ -6,6 +6,7 @@ kernel beside its plain PyTorch twin."""
 from .device import (
     bincount_kernel, default_hist_bins, dequantize_kernel, encode_step,
     encode_step_chunk, encode_step_from_q, encode_step_from_q_cuda,
+    encode_step_stream_sharded,
     histogram, minmax_chunk_kernel, parallelogram_predict_kernel,
     predict_residual, predict_residual_ref, quantize_kernel,
     quantize_rows_kernel, quantized_range_chunk_kernel, unpack12_kernel,
@@ -33,6 +34,7 @@ __all__ = [
     "dequantize_kernel", "encode_direct_coded_streams_device",
     "encode_group_entropy_device", "encode_step", "encode_step_chunk",
     "encode_step_from_q", "encode_step_from_q_cuda",
+    "encode_step_stream_sharded",
     "encode_streams_device", "histogram", "minmax_chunk_kernel",
     "normalize_tables", "parallelogram_predict_kernel", "predict_residual",
     "predict_residual_ref", "quantize_kernel", "quantize_rows_kernel",

@@ -27,10 +27,12 @@ the dividend's device, broadcast to its shape (``_div``).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
 
+from ..device import replicate, resolve_axis, shard_bounds
 from . import _build
 
 # the largest bin count whose int32 bins fit a Hopper block's 227 KB of
@@ -151,8 +153,14 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def _cuda_stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+@contextlib.contextmanager
+def _launch_on(t: torch.Tensor):
+    """Make ``t``'s card the current device for one launch and yield the
+    handle of its current stream. The C entry points set their kernels'
+    attributes and launch on the current device, which must be the
+    stream's: a tensor on ``cuda:1`` launched from ``cuda:0`` fails."""
+    with torch.cuda.device(t.device):
+        yield torch.cuda.current_stream(t.device).cuda_stream
 
 
 def predict_fits_smem(V: int, C: int, itemsize: int) -> bool:
@@ -215,11 +223,12 @@ def predict_residual(q: torch.Tensor, gathers: dict, vmin: torch.Tensor,
     lib = _build.load()
     fn = (lib.tdr_predict_residual_u16 if q.dtype == torch.uint16
           else lib.tdr_predict_residual_i32)
-    rc = fn(q.data_ptr(), *(gathers[k].data_ptr() for k in _GATHER_INDEX),
-            *(gathers[k].data_ptr() for k in _GATHER_MASK),
-            vmin.data_ptr(), vmax.data_ptr(), out.data_ptr(), B, V, T, C,
-            int(predict_fits_smem(V, C, q.element_size())), _cuda_stream(q))
-    _build.check(rc, "predict_residual")
+    with _launch_on(q) as stream:
+        rc = fn(q.data_ptr(), *(gathers[k].data_ptr() for k in _GATHER_INDEX),
+                *(gathers[k].data_ptr() for k in _GATHER_MASK),
+                vmin.data_ptr(), vmax.data_ptr(), out.data_ptr(), B, V, T, C,
+                int(predict_fits_smem(V, C, q.element_size())), stream)
+        _build.check(rc, "predict_residual")
     predict_residual.n_launches += 1
     return out
 
@@ -271,10 +280,10 @@ def histogram(symbols: torch.Tensor, num_bins: int) -> torch.Tensor:
     alloc = torch.empty if use_smem and splits == 1 else torch.zeros
     out = alloc((B, num_bins), dtype=torch.int32, device=symbols.device)
     lib = _build.load()
-    rc = lib.tdr_histogram(symbols.data_ptr(), B, N, num_bins,
-                           out.data_ptr(), int(use_smem), splits,
-                           _cuda_stream(symbols))
-    _build.check(rc, "histogram")
+    with _launch_on(symbols) as stream:
+        rc = lib.tdr_histogram(symbols.data_ptr(), B, N, num_bins,
+                               out.data_ptr(), int(use_smem), splits, stream)
+        _build.check(rc, "histogram")
     histogram.n_launches += 1
     return out
 
@@ -293,7 +302,38 @@ def encode_step_from_q_cuda(q: torch.Tensor, gathers: dict,
     if hist_bins is None:
         hist_bins = default_hist_bins(bits)
     symbols = predict_residual(q, gathers, vmin, vmax)
-    counts = histogram(symbols.view(symbols.shape[0], -1), hist_bins)
+    counts = histogram(symbols.flatten(1), hist_bins)
+    return symbols, counts
+
+
+def encode_step_stream_sharded(q, gathers: dict, vmin, vmax,
+                               bits: int = 11, hist_bins: int | None = None,
+                               mesh_axis=None):
+    """The fused step with the traversal split over the stream axis
+    ``mesh_axis`` (``resolve_axis``), the counterpart of
+    ``_jit_step_stream_sharded``: every device holds the whole of q (B, V,
+    C) and the range vmin/vmax (B,) int32 (copied once to each distinct
+    device; a list, one entry a shard, is taken as placed), shard i runs
+    K1 on its segment of the traversal (``shard_bounds`` over the T
+    gathers) against that global range, and K2 on the segment's symbols.
+    The segments' histograms are summed on the axis's first device: the
+    psum over "stream". Returns (the segments' symbols (B, T_i, C) int32,
+    one tensor a shard on its device; counts (B, hist_bins) int32), which
+    joined equal ``encode_step_from_q_cuda`` on one device."""
+    axis = resolve_axis(mesh_axis)
+    if hist_bins is None:
+        hist_bins = default_hist_bins(bits)
+    gs = replicate(gathers, axis)
+    T = gs[0]["order"].numel()
+    symbols, counts = [], None
+    for (a, b), qd, g, lo, hi in zip(
+            shard_bounds(T, len(axis)), replicate(q, axis), gs,
+            replicate(vmin, axis), replicate(vmax, axis)):
+        sym = predict_residual(qd, {k: v[a:b] for k, v in g.items()}, lo,
+                               hi)
+        cnt = histogram(sym.flatten(1), hist_bins).to(axis[0])
+        counts = cnt if counts is None else counts + cnt
+        symbols.append(sym)
     return symbols, counts
 
 

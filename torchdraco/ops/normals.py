@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import resolve
+from ..device import replicate, resolve, resolve_axis, shard_rows
 # single source of truth for the ring precompute lives with the host twin
 from ..shared.prediction import collect_normal_rings  # noqa: F401
 
@@ -262,6 +262,28 @@ def normal_encode_chain(q_pos, normals, tip_pt, next_pt, prev_pt, mask,
         for b0 in range(0, B, step)]
     return (torch.cat([p[0] for p in parts]),
             torch.cat([p[1] for p in parts]))
+
+
+def normal_encode_chain_sharded(q_pos, normals, tip_pt, next_pt, prev_pt,
+                                mask, uo_point_pos, uo_point_nrm,
+                                bits: int = 8, mesh_axis=None):
+    """``normal_encode_chain`` with the batch axis split over the shard
+    axis ``mesh_axis`` (``resolve_axis``), the counterpart of
+    ``_jit_normal_chain_sharded``: q_pos and normals are cut along the
+    batch axis (``shard_rows``), every ring and index table is copied to
+    each distinct device (``replicate``), and each shard runs the chain on
+    its device, in sub-batches as the chain runs them. Any argument may
+    come as a list, one entry a shard, each on its device. Returns
+    (symbols, flips) as the chain does, in shard order on the axis's
+    first device."""
+    axis = resolve_axis(mesh_axis)
+    tables = [replicate(t, axis) for t in (tip_pt, next_pt, prev_pt, mask,
+                                           uo_point_pos, uo_point_nrm)]
+    parts = [normal_encode_chain(q, n, *(t[i] for t in tables), bits=bits)
+             for i, (q, n) in enumerate(zip(shard_rows(q_pos, axis),
+                                            shard_rows(normals, axis)))]
+    return tuple(torch.cat([x.to(axis[0]) for x in part])
+                 for part in zip(*parts))
 
 
 def _flip_select(pred: torch.Tensor, orig: torch.Tensor) -> torch.Tensor:

@@ -40,7 +40,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import resolve
+from ..device import (
+    replicate, resolve, resolve_axis, shard_bounds, shard_rows,
+)
 from ..entropy.rans import (
     normalize_freq_counts, normalize_freq_counts_batch,
     rans_precision_for_bit_length, serialize_rans_table,
@@ -50,7 +52,7 @@ from ..entropy.symbol_coding import DIRECT_CODED, bit_length_u64
 from ..wire.byte_io import ByteWriter
 from ..wire.varint import leb128_bytes, leb128_write
 from . import _build
-from .device import _cuda_stream, _require
+from .device import _launch_on, _require
 
 MAX_RENORM_PER_SYMBOL = 3
 _U32 = 0xFFFFFFFF
@@ -237,12 +239,13 @@ def rans_words_scan(symbols, dist, cums, prec, lengths):
         return words, meta
     sym = symbols.contiguous()
     lib = _build.load()
-    rc = lib.tdr_rans_words(sym.data_ptr(), dist.data_ptr(),
-                            cums.data_ptr(), int(dist.shape[1]),
-                            prec.data_ptr(), lengths.data_ptr(), L, n, cap_w,
-                            words.data_ptr(), meta.data_ptr(),
-                            _cuda_stream(symbols))
-    _build.check(rc, "rans_words_scan")
+    with _launch_on(symbols) as stream:
+        rc = lib.tdr_rans_words(sym.data_ptr(), dist.data_ptr(),
+                                cums.data_ptr(), int(dist.shape[1]),
+                                prec.data_ptr(), lengths.data_ptr(), L, n,
+                                cap_w, words.data_ptr(), meta.data_ptr(),
+                                stream)
+        _build.check(rc, "rans_words_scan")
     rans_words_scan.n_launches += 1
     return words, meta
 
@@ -302,53 +305,92 @@ def assemble_payloads(bls, tables, blobs) -> list[bytes]:
             for bl, tb, blob in zip(bls, tables, blobs)]
 
 
-def encode_group_entropy_device(symbols: torch.Tensor,
-                                counts: torch.Tensor) -> list[bytes]:
+def encode_group_entropy_device(symbols, counts,
+                                mesh_axis=None) -> list[bytes]:
     """DirectCoded payloads for a topology group: ``symbols`` (B, T, C)
     int32 from the fused step, ``counts`` (B, bins) int32 their per-mesh
     histogram, both on one device. Bit-exact with
     ``encode_symbols(..., DIRECT_CODED)``. Raises ValueError when the
     histogram dropped symbols (its bins were too few for the residuals).
     Lanes flagged pathological take the host's tables and precision into
-    the same launch; ``n_patho_lanes`` counts them."""
-    B, T, C = symbols.shape
+    the same launch; ``n_patho_lanes`` counts them.
+
+    With ``mesh_axis`` (a shard axis, ``resolve_axis``) the lanes shard
+    over it, as ``_rans_scan_lanes_words_vprec_sharded`` shards them:
+    ``symbols`` and ``counts`` are cut along the batch axis
+    (``shard_rows``; a list of per-shard tensors, as
+    ``device_encode_group`` returns them, is taken as cut), and
+    each shard normalizes its tables, checks its histogram and codes its
+    lanes in one K3 launch on its device. The payloads come back in
+    shard order, the same bytes."""
+    if mesh_axis is None:
+        return _group_entropy([symbols], [counts])
+    axis = resolve_axis(mesh_axis)
+    return _group_entropy(shard_rows(symbols, axis), shard_rows(counts, axis))
+
+
+def _group_entropy(symbols: list, counts: list) -> list[bytes]:
+    """``encode_group_entropy_device`` over shards, one (B_i, T, C)
+    symbols and (B_i, bins) counts tensor each, on their devices. Each
+    stage is enqueued on every shard before the host reads that stage's
+    results back, so that shards on distinct devices overlap: the tables,
+    then (on the host) the summaries, the pathological lanes and the
+    tables' rows, then every K3 launch, then the words."""
+    shards = [(s, c) for s, c in zip(symbols, counts) if s.shape[0]]
+    if not shards:
+        return []
+    T, C = shards[0][0].shape[1:]
     n_sym = T * C
-    dev = symbols.device
-    dist, cums, prec, tiny = normalize_tables(counts, n_sym)
-    counts0, ns, totals, patho = tiny.cpu().numpy().astype(np.int64).T
-    if not np.all(totals == n_sym):
-        bad = int(np.flatnonzero(totals != n_sym)[0])
-        raise ValueError(
-            f"device histogram dropped symbols (lane {bad}: "
-            f"{int(totals[bad])}/{n_sym} binned) — hist_bins too small for "
-            "the symbol range")
-    if patho.any():
-        rows = np.flatnonzero(patho)
-        rows_dev = torch.from_numpy(rows).to(dev)
-        d_host, ns_host = normalize_freq_counts_batch(
-            counts[rows_dev].cpu().numpy(), prec[rows_dev].cpu().numpy())
-        d = torch.from_numpy(d_host.astype(np.int32)).to(dev)
-        dist[rows_dev] = d
-        cums[rows_dev] = 0
-        cums[rows_dev, 1:] = torch.cumsum(d[:, :-1], dim=1, dtype=torch.int32)
-        ns[rows] = ns_host
-        encode_group_entropy_device.n_patho_lanes += len(rows)
-    # tables come back before the launch, so their serialization on the
-    # host overlaps the kernel
-    dist_np = dist[:, :max(int(ns.max()), 1)].cpu().numpy().astype(np.int64)
-    lengths = torch.full((B,), n_sym, dtype=torch.int32, device=dev)
-    words, meta = rans_words_scan(symbols.reshape(B, n_sym), dist, cums,
-                                  prec, lengths)
-    bls = np.clip(bit_length_u64((n_sym - counts0).astype(np.uint64))
-                  + 1, 1, 18)
-    tables = serialize_rans_tables_batch(dist_np, ns)
-    meta_np = meta.cpu().numpy().view(np.uint32)
-    w = max(int(meta_np[:, 0].max()), 1) if B else 1
-    words_np = words[:, :w].cpu().numpy().view(np.uint32)
-    buffers, cnts, packed, nflush = collect_words(words_np, meta_np, n_sym)
-    nbytes = append_flush(buffers, cnts, packed, nflush)
-    blobs = [buffers[k, :nbytes[k]].tobytes() for k in range(B)]
-    return assemble_payloads(bls, tables, blobs)
+    tables = [normalize_tables(c, n_sym) for _, c in shards]
+    host = []
+    for (_, c), (dist, cums, prec, tiny) in zip(shards, tables):
+        dev = c.device
+        counts0, ns, totals, patho = tiny.cpu().numpy().astype(np.int64).T
+        if not np.all(totals == n_sym):
+            bad = int(np.flatnonzero(totals != n_sym)[0])
+            raise ValueError(
+                f"device histogram dropped symbols (lane {bad}: "
+                f"{int(totals[bad])}/{n_sym} binned) — hist_bins too small "
+                "for the symbol range")
+        if patho.any():
+            rows = np.flatnonzero(patho)
+            rows_dev = torch.from_numpy(rows).to(dev)
+            d_host, ns_host = normalize_freq_counts_batch(
+                c[rows_dev].cpu().numpy(), prec[rows_dev].cpu().numpy())
+            d = torch.from_numpy(d_host.astype(np.int32)).to(dev)
+            dist[rows_dev] = d
+            cums[rows_dev] = 0
+            cums[rows_dev, 1:] = torch.cumsum(d[:, :-1], dim=1,
+                                              dtype=torch.int32)
+            ns[rows] = ns_host
+            encode_group_entropy_device.n_patho_lanes += len(rows)
+        # tables come back before the launches, so their serialization
+        # on the host overlaps the kernels
+        dist_np = dist[:, :max(int(ns.max()), 1)].cpu().numpy().astype(
+            np.int64)
+        host.append((counts0, ns, dist_np))
+    scans = []
+    for (s, _), (dist, cums, prec, _) in zip(shards, tables):
+        B = s.shape[0]
+        lengths = torch.full((B,), n_sym, dtype=torch.int32, device=s.device)
+        scans.append(rans_words_scan(s.reshape(B, n_sym), dist, cums, prec,
+                                     lengths))
+    serialized = [serialize_rans_tables_batch(dist_np, ns)
+                  for _, ns, dist_np in host]
+    payloads = []
+    for (words, meta), (counts0, _, _), tb in zip(scans, host, serialized):
+        B = meta.shape[0]
+        bls = np.clip(bit_length_u64((n_sym - counts0).astype(np.uint64))
+                      + 1, 1, 18)
+        meta_np = meta.cpu().numpy().view(np.uint32)
+        w = max(int(meta_np[:, 0].max()), 1)
+        words_np = words[:, :w].cpu().numpy().view(np.uint32)
+        buffers, cnts, packed, nflush = collect_words(words_np, meta_np,
+                                                      n_sym)
+        nbytes = append_flush(buffers, cnts, packed, nflush)
+        blobs = [buffers[k, :nbytes[k]].tobytes() for k in range(B)]
+        payloads += assemble_payloads(bls, tb, blobs)
+    return payloads
 
 
 encode_group_entropy_device.n_patho_lanes = 0
@@ -461,13 +503,14 @@ def rans_scan_dense(fs, cs, lengths, precision: int, guard_steps=None):
     states = torch.empty((L,), dtype=torch.int32, device=dev)
     if L and T:
         lib = _build.load()
-        rc = lib.tdr_rans_dense(
-            fs.data_ptr(), cs.data_ptr(), int(fs.dtype == torch.int64),
-            ln.data_ptr(), L, T, int(precision), emitted.data_ptr(),
-            is_byte.data_ptr(), states.data_ptr(),
-            guard_steps.data_ptr() if guard_steps is not None else None,
-            _cuda_stream(fs))
-        _build.check(rc, "rans_scan_dense")
+        with _launch_on(fs) as stream:
+            rc = lib.tdr_rans_dense(
+                fs.data_ptr(), cs.data_ptr(), int(fs.dtype == torch.int64),
+                ln.data_ptr(), L, T, int(precision), emitted.data_ptr(),
+                is_byte.data_ptr(), states.data_ptr(),
+                guard_steps.data_ptr() if guard_steps is not None else None,
+                stream)
+            _build.check(rc, "rans_scan_dense")
         rans_scan_dense.n_launches += 1
     else:  # no step runs: every lane keeps its initial state
         states.fill_(4 << int(precision))
@@ -522,7 +565,7 @@ def zero_frequency_hit(symbols, freqs, lengths) -> torch.Tensor:
 
 
 def rans_encode_lanes(symbols, freqs, cums, lengths, precision: int = 12,
-                      dense: bool = False):
+                      dense: bool = False, mesh_axis=None):
     """Encode L lanes of up to T symbols each. symbols (L, T) int (a lane
     codes ``symbols[l, :lengths[l]]`` front to back, i.e. a Draco stream
     fed reversed); freqs/cums (S,) shared or (L, S) per-lane normalized
@@ -531,6 +574,12 @@ def rans_encode_lanes(symbols, freqs, cums, lengths, precision: int = 12,
     False the words scan (K3), True the dense scan (K4) and its
     compaction, which was slower on an H100. Returns numpy (buffers
     (L, 3T+8) uint8, nbytes (L,) int32), the same bytes either way.
+
+    ``mesh_axis`` (a shard axis, ``resolve_axis``) shards the lanes over
+    its devices, for either engine, as ``_rans_scan_lanes_words_sharded``
+    does for the words scan: per-lane tables go with their lanes, a shared
+    table is copied to each device, and every shard is enqueued before
+    the host reads one back. The bytes do not change.
 
     A coded symbol of frequency 0 raises ValueError: the stream could not
     be decoded, and the JAX package's two engines give different bytes
@@ -548,33 +597,63 @@ def rans_encode_lanes(symbols, freqs, cums, lengths, precision: int = 12,
              and (freqs.dim() == 1 or freqs.shape[0] == L),
              f"freqs/cums must be (S,) or ({L}, S) with S > 0")
     _require(tuple(lengths.shape) == (L,), f"lengths must be ({L},)")
-    if freqs.dim() == 1:  # one table for every lane
-        freqs, cums = freqs.expand(L, -1), cums.expand(L, -1)
+    axis = [dev] if mesh_axis is None else resolve_axis(mesh_axis)
+    shared = freqs.dim() == 1
+    shards = []
+    for (a, b), d, f, c in zip(
+            shard_bounds(L, len(axis)), axis,
+            replicate(freqs, axis) if shared else shard_rows(freqs, axis),
+            replicate(cums, axis) if shared else shard_rows(cums, axis)):
+        if shared:  # one table for every lane
+            f, c = f.expand(b - a, -1), c.expand(b - a, -1)
+        shards.append((symbols[a:b].to(d), f, c, lengths[a:b].to(d)))
     # before either engine: the plain words scan would divide by zero
-    _require(not bool(zero_frequency_hit(symbols, freqs, lengths)),
+    hits = [zero_frequency_hit(s, f, ln) for s, f, _, ln in shards]
+    _require(not any(bool(h) for h in hits),
              "a lane codes a symbol of frequency 0")
-    if dense:
-        compacted, counts, packed, nflush = rans_scan_lanes_dense(
-            symbols, freqs, cums, lengths, precision)
-        buffers = np.zeros((L, 3 * T + 8), dtype=np.uint8)
+    run = _lanes_dense if dense else _lanes_words
+    jobs = [run(s, f, c, ln, precision) for s, f, c, ln in shards]
+    parts = [job(T) for job in jobs]
+    buffers, counts, packed, nflush = (np.concatenate(x)
+                                       for x in zip(*parts))
+    nbytes = append_flush(buffers, counts, packed, nflush)
+    return buffers, nbytes
+
+
+def _lanes_dense(symbols, freqs, cums, lengths, precision):
+    """Enqueue K4 over one shard of lanes; returns the readback, which
+    gives (buffers, counts, packed, nflush) as numpy."""
+    compacted, counts, packed, nflush = rans_scan_lanes_dense(
+        symbols, freqs, cums, lengths, precision)
+
+    def collect(T):
+        buffers = np.zeros((symbols.shape[0], 3 * T + 8), dtype=np.uint8)
         buffers[:, :3 * T] = compacted.cpu().numpy()
-        counts = counts.cpu().numpy().astype(np.int64)
-        packed, nflush = packed.cpu().numpy(), nflush.cpu().numpy()
-    else:
-        # K3 codes the LAST length symbols of a row back to front
-        dist = freqs.to(torch.int32).contiguous()
-        cum2 = cums.to(torch.int32).contiguous()
-        prec = torch.full((L,), int(precision), dtype=torch.int32,
-                          device=dev)
-        words, meta = rans_words_scan(
-            symbols.to(torch.int32).flip(1), dist, cum2, prec,
-            lengths.to(torch.int32).contiguous())
+        return (buffers, counts.cpu().numpy().astype(np.int64),
+                packed.cpu().numpy(), nflush.cpu().numpy())
+    return collect
+
+
+def _lanes_words(symbols, freqs, cums, lengths, precision):
+    """Enqueue K3 over one shard of lanes, which codes the LAST length
+    symbols of a row back to front; returns the readback, as
+    ``_lanes_dense``."""
+    L = symbols.shape[0]
+    dev = symbols.device
+    prec = torch.full((L,), int(precision), dtype=torch.int32, device=dev)
+    words, meta = rans_words_scan(
+        symbols.to(torch.int32).flip(1), freqs.to(torch.int32).contiguous(),
+        cums.to(torch.int32).contiguous(), prec,
+        lengths.to(torch.int32).contiguous())
+
+    def collect(T):
         meta_np = meta.cpu().numpy().view(np.uint32)
         w = max(int(meta_np[:, 0].max()), 1) if L else 1
         words_np = words[:, :w].cpu().numpy().view(np.uint32)
         buffers, counts, packed, nflush = collect_words(words_np, meta_np, T)
-    nbytes = append_flush(buffers, counts, packed, nflush)
-    return buffers, nbytes
+        return (buffers, counts, np.asarray(packed).astype(np.int64),
+                np.asarray(nflush).astype(np.int64))
+    return collect
 
 
 def encode_streams_device(symbol_streams, freq_counts, precision: int = 12,
@@ -804,13 +883,14 @@ def rans_decode_lanes(buffers, nbytes, freqs, counts,
     out = torch.empty((L, T), dtype=dtype, device=dev)
     if L and T:
         lib = _build.load()
-        rc = lib.tdr_rans_decode(bufs.data_ptr(), cap, nb.data_ptr(),
-                                 inc32.data_ptr(), S,
-                                 S if inc.dim() == 2 else 0,
-                                 cn.data_ptr(), L, T, int(precision),
-                                 sentinel, out.element_size(),
-                                 out.data_ptr(), _cuda_stream(buffers))
-        _build.check(rc, "rans_decode_lanes")
+        with _launch_on(buffers) as stream:
+            rc = lib.tdr_rans_decode(bufs.data_ptr(), cap, nb.data_ptr(),
+                                     inc32.data_ptr(), S,
+                                     S if inc.dim() == 2 else 0,
+                                     cn.data_ptr(), L, T, int(precision),
+                                     sentinel, out.element_size(),
+                                     out.data_ptr(), stream)
+            _build.check(rc, "rans_decode_lanes")
         rans_decode_lanes.n_launches += 1
     return out
 

@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import resolve
+from ..device import replicate, resolve, resolve_axis, shard_rows
 # single source of truth for the topology-static UV gathers lives with
 # the host twin
 from ..shared.prediction import collect_uv_gathers  # noqa: F401
@@ -62,13 +62,45 @@ def uv_encode_chain(q_pos, q_uv, g, uo_pos, uo_uv, device=None):
     dev = resolve(device)
     if not isinstance(g["cpt"], torch.Tensor):
         g = uv_gathers_to_torch(g, dev)
-    out = _uv_chain_impl(
+    return _uv_numpy([_uv_chain_on(dev, q_pos, q_uv, g, uo_pos, uo_uv)])
+
+
+def uv_encode_chain_sharded(q_pos, q_uv, g, uo_pos, uo_uv, mesh_axis=None):
+    """``uv_encode_chain`` with the batch axis split over the shard axis
+    ``mesh_axis`` (``resolve_axis``), the counterpart of
+    ``tpudraco/ops/texcoords.py`` ``uv_encode_chain_sharded``: q_pos and
+    q_uv are cut along the batch axis (``shard_rows``), the gather tables
+    and index maps are copied to each distinct device (``replicate``),
+    and every shard's chain is enqueued before the host reads one back.
+    ``g`` may come as a list of per-shard table dicts, q_pos as a list of
+    per-shard tensors. Returns what ``uv_encode_chain`` returns, the
+    meshes in shard order."""
+    axis = resolve_axis(mesh_axis)
+    if not isinstance(g, (list, tuple)) and not isinstance(g["cpt"],
+                                                           torch.Tensor):
+        g = uv_gathers_to_torch(g, "cpu")
+    outs = [_uv_chain_on(d, qp, qu, gd, up, uu) for d, qp, qu, gd, up, uu
+            in zip(axis, shard_rows(q_pos, axis), shard_rows(q_uv, axis),
+                   replicate(g, axis), replicate(uo_pos, axis),
+                   replicate(uo_uv, axis))]
+    return _uv_numpy(outs)
+
+
+def _uv_chain_on(dev, q_pos, q_uv, g, uo_pos, uo_uv) -> tuple:
+    """Enqueue the chain on ``dev``; ``g`` holds tensors."""
+    return _uv_chain_impl(
         _as_tensor(q_pos, dev, torch.int64),
         _as_tensor(q_uv, dev, torch.int64),
         _as_tensor(uo_pos, dev, torch.int64),
         _as_tensor(uo_uv, dev, torch.int64),
         *(g[k].to(dev) for k in _UV_INDEX_KEYS + _UV_MASK_KEYS))
-    sym, vmin, vmax, orient, geo_v, risky = (x.cpu().numpy() for x in out)
+
+
+def _uv_numpy(outs: list) -> tuple:
+    """The chain's outputs of every shard read back and joined in shard
+    order."""
+    sym, vmin, vmax, orient, geo_v, risky = (
+        np.concatenate([x.cpu().numpy() for x in xs]) for xs in zip(*outs))
     return (sym.astype(np.uint32), vmin, vmax, orient, geo_v, risky)
 
 

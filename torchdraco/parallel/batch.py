@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from .. import native
-from ..device import resolve
+from ..device import axis_for, replicate, resolve, resolve_axis, shard_rows
 from ..encode import (
     Config, _traversal_wire_id, encode_header, encode_metadata,
 )
@@ -56,15 +56,16 @@ from ..native import topo as native_topo
 from ..ops.gathers import build_parallelogram_gathers
 from ..ops.device import (
     default_hist_bins, encode_step_chunk, encode_step_from_q_cuda,
-    minmax_chunk_kernel, quantized_range_chunk_kernel,
+    encode_step_stream_sharded, minmax_chunk_kernel,
+    quantized_range_chunk_kernel,
 )
 from ..ops.normals import (
-    RING_BYTES_PER_SLOT, collect_normal_rings, normal_encode_chain,
+    RING_BYTES_PER_SLOT, collect_normal_rings, normal_encode_chain_sharded,
     rings_to_torch,
 )
 from ..ops.rans_lanes import encode_group_entropy_device
 from ..ops.texcoords import (
-    collect_uv_gathers, uv_encode_chain, uv_gathers_to_torch,
+    collect_uv_gathers, uv_encode_chain_sharded, uv_gathers_to_torch,
 )
 from ..shared.prediction import (
     ring_width, write_normal_flips, write_tex_orientations,
@@ -347,25 +348,37 @@ def _host_quantize(batch: np.ndarray, bits: int):
 
 
 def device_encode_group(positions_batch: np.ndarray, topo: PreparedTopology,
-                        pos_att, bits: int = 11, device=None) -> dict:
+                        pos_att, bits: int = 11, device=None,
+                        mesh_axis=None) -> dict:
     """The fused step for a (B, V, C) float32 batch sharing ``topo``:
     quantize on the host (C++, the canonical formula), upload uint16
     (int32 past 16 bits), run K1 and K2 on ``device`` (None: the card;
-    ``"cpu"`` runs their plain twins). Returns symbols and
-    counts on the device, plus vmin/vmax, mins, delta_max and the quantized
-    values on the host (``q``) and as uploaded (``q_dev``)."""
-    dev = resolve(device)
+    ``"cpu"`` runs their plain twins) or, with ``mesh_axis`` (a shard
+    axis, ``resolve_axis``; ``device``, if given, its first device), split
+    over its devices as ``_jit_step_sharded_q`` splits the batch: shard i
+    uploads its rows (``shard_bounds``) and runs K1 and K2 there against
+    that device's gathers. Without an axis the one device is the axis.
+
+    Returns ``symbols`` (B_i, T, C) int32, ``counts`` and the values as
+    uploaded (``q_dev``) as lists, one tensor a shard of the axis on its
+    device, in axis order (empty where the batch has fewer meshes than
+    the axis has shards), and on the host, whole, vmin/vmax, mins,
+    delta_max and the quantized values (``q``)."""
+    axis = axis_for(device, mesh_axis)
     B, V, C = positions_batch.shape
-    gathers = _device_gathers(topo, pos_att, dev, V)
     q_np, mins, delta_max, vmin, vmax = _host_quantize(positions_batch, bits)
-    q_dev = torch.from_numpy(q_np).to(dev)
-    vmin_dev = torch.from_numpy(np.asarray(vmin, np.int32)).to(dev)
-    vmax_dev = torch.from_numpy(np.asarray(vmax, np.int32)).to(dev)
-    symbols, counts = encode_step_from_q_cuda(q_dev, gathers, vmin_dev,
-                                              vmax_dev, bits=bits)
-    return {"symbols": symbols, "counts": counts, "vmin": vmin,
-            "vmax": vmax, "mins": mins, "delta_max": delta_max, "q": q_np,
-            "q_dev": q_dev}
+    vmin = np.asarray(vmin, np.int32)
+    vmax = np.asarray(vmax, np.int32)
+    shards = {"symbols": [], "counts": [], "q_dev": []}
+    for dev, q_dev, lo, hi in zip(axis, *(shard_rows(x, axis)
+                                          for x in (q_np, vmin, vmax))):
+        symbols, counts = encode_step_from_q_cuda(
+            q_dev, _device_gathers(topo, pos_att, dev, V), lo, hi,
+            bits=bits)
+        for k, v in zip(shards, (symbols, counts, q_dev)):
+            shards[k].append(v)
+    return {"vmin": vmin, "vmax": vmax, "mins": mins,
+            "delta_max": delta_max, "q": q_np, **shards}
 
 
 def _attribute_eligible(meshes, idxs, att_idx, pos_id, n_comp):
@@ -399,18 +412,20 @@ def _normal_chain_fits(ring: int, bits: int) -> bool:
 def _device_extra_attribute_entries(meshes, idxs, topo: PreparedTopology,
                                     bits: int, normal_bits: int = 8,
                                     uv_bits: int = 10, device=None,
-                                    q_pos=None) -> dict:
+                                    q_pos=None, mesh_axis=None) -> dict:
     """Device-encode the NORMAL (ops/normals.py) and TEX_COORD
     (ops/texcoords.py) attributes of one chunk ``idxs`` of a topology
-    group, on ``device`` (None: the card). ``q_pos`` is the chunk's
-    quantized positions as already uploaded (``device_encode_group``'s
-    ``q_dev``); without it they are quantized and uploaded here, once, and
+    group through the sharded chains, over ``mesh_axis`` or else the one
+    device ``device`` (None: the card), each device holding the tables
+    of the topology. ``q_pos`` is the chunk's quantized positions as
+    already uploaded (``device_encode_group``'s ``q_dev``, one tensor a
+    shard); without it they are quantized and uploaded here, once, and
     feed every chain. Returns
     {position-in-idxs: {att_idx: {"payload", "xform_meta"}}}; ineligible
     attributes (or individual "risky"/degenerate meshes) are simply
     absent and take the host path in the assembly. An error inside a chain
     raises."""
-    dev = resolve(device)
+    axis = axis_for(device, mesh_axis)
     mesh0 = meshes[idxs[0]]
     out: dict = {}
     pos_att0 = mesh0.position_attribute()
@@ -459,20 +474,18 @@ def _device_extra_attribute_entries(meshes, idxs, topo: PreparedTopology,
     if q_pos is None:
         pos_idx = next(j for j, a in enumerate(mesh0.attributes)
                        if a is pos_att0)
-        q_pos = torch.from_numpy(
-            _host_quantize(stacked(pos_idx), bits)[0]).to(dev)
-    uo_pos = torch.from_numpy(
-        pos_att0.unique_indices().astype(np.int64)).to(dev)
+        q_pos = shard_rows(_host_quantize(stacked(pos_idx), bits)[0], axis)
+    uo_pos = replicate(pos_att0.unique_indices().astype(np.int64), axis)
     n = len(idxs)
 
     for ni in normal_idxs:
-        rings = topo.dev_rings_for(ni, dev)
-        uo_nrm = torch.from_numpy(
-            mesh0.attributes[ni].unique_indices().astype(np.int64)).to(dev)
-        nrm = torch.from_numpy(stacked(ni)).to(dev)
-        s, f = normal_encode_chain(
-            q_pos, nrm, rings["tip_pt"], rings["next_pt"], rings["prev_pt"],
-            rings["mask"], uo_pos, uo_nrm, bits=normal_bits)
+        uo_nrm = mesh0.attributes[ni].unique_indices().astype(np.int64)
+        rings = [topo.dev_rings_for(ni, d) for d in axis]
+        tables = [[r[k] for r in rings]
+                  for k in ("tip_pt", "next_pt", "prev_pt", "mask")]
+        s, f = normal_encode_chain_sharded(
+            q_pos, stacked(ni), *tables, uo_pos, uo_nrm, bits=normal_bits,
+            mesh_axis=axis)
         syms, flips = s.cpu().numpy(), f.cpu().numpy()
         n_mx = (1 << normal_bits) - 1
         for k in range(n):
@@ -486,12 +499,12 @@ def _device_extra_attribute_entries(meshes, idxs, topo: PreparedTopology,
                 "payload": _direct_coded_payload(syms[k]),
                 "xform_meta": bytes(xw.getvalue())}
     for ui in uv_idxs:
-        q_uv = torch.from_numpy(
-            _host_quantize(uv_batches[ui], uv_bits)[0]).to(dev)
-        syms, vmin, vmax, ovals, oflags, risky = uv_encode_chain(
-            q_pos, q_uv,
-            topo.dev_uv_gathers_for(ui, pos_att0.num_points, dev), uo_pos,
-            mesh0.attributes[ui].unique_indices(), device=dev)
+        q_uv = _host_quantize(uv_batches[ui], uv_bits)[0]
+        uo_uv = mesh0.attributes[ui].unique_indices()
+        g = [topo.dev_uv_gathers_for(ui, pos_att0.num_points, d)
+             for d in axis]
+        syms, vmin, vmax, ovals, oflags, risky = uv_encode_chain_sharded(
+            q_pos, q_uv, g, uo_pos, uo_uv, mesh_axis=axis)
         for k in range(n):
             if risky[k]:
                 continue  # host path handles this mesh's UVs exactly
@@ -510,12 +523,12 @@ def _host_entropy_payloads(dev_c: dict, bits: int) -> list[bytes]:
     where ``bits + 1 <= 16``: zigzag symbols stay below 2^(bits+1)) and
     each mesh's DirectCoded payload made by the host's C++ coder, on a
     pool of 8 threads. K2's counts are held to the symbol count, as the
-    device coder holds them."""
-    syms = dev_c["symbols"]
+    device coder holds them. The shards are read back in axis order."""
+    parts, counts = dev_c["symbols"], dev_c["counts"]
     if bits + 1 <= 16:
-        syms = syms.to(torch.uint16)
-    n_counted = int(dev_c["counts"].sum())
-    syms = syms.cpu().numpy()
+        parts = [p.to(torch.uint16) for p in parts]
+    n_counted = sum(int(c.sum()) for c in counts)
+    syms = np.concatenate([p.cpu().numpy() for p in parts])
     if n_counted != syms.size:
         raise RuntimeError(f"histogram lost symbols: {n_counted} of "
                            f"{syms.size} counted")
@@ -558,7 +571,17 @@ class BatchEncoder:
     router's decision cache on disk; ``"default"`` is
     ``TORCHDRACO_ROUTE_CACHE`` or ``~/.cache/torchdraco/route_cache.json``,
     None or ``""`` keeps decisions in memory only. ``routing_log`` holds
-    one entry per topology group the router decided."""
+    one entry per topology group the router decided.
+
+    ``mesh_axis``: a shard axis (``torchdraco.device.resolve_axis``: a
+    sequence of devices, which may repeat one card), the counterpart of
+    tpudraco's 1-D ``("data",)`` mesh. The batch path splits every chunk
+    of a topology group over it: the fused step, the rANS coder and the
+    NORMAL and TEX_COORD chains run per shard, the same bytes; the corpus
+    encoder, the router and ``transcode_corpus`` carry it. The single-mesh
+    routes run on its first device (``encode_mesh_device_stream_sharded``
+    takes an axis of its own). ``device``, where given beside it, must be
+    the axis's first device."""
 
     # meshes per device call: the group's lanes run in one K3 launch
     DEVICE_CHUNK = 512
@@ -618,13 +641,14 @@ class BatchEncoder:
 
     def __init__(self, cfg=None, use_device: bool | str = True,
                  route_cache_path: str | None = "default",
-                 device=None) -> None:
+                 device=None, mesh_axis=None) -> None:
         if use_device not in (False, True, "auto"):
             raise ValueError(f"use_device must be bool or 'auto', "
                              f"got {use_device!r}")
         self.cfg = cfg
         self.use_device = use_device
         self.device = device
+        self.mesh_axis = mesh_axis
         self.n_host_attributes = 0
         self.routing_log: list[dict] = []
         # host seconds of the last device call, by stage
@@ -646,9 +670,18 @@ class BatchEncoder:
         # class) -> [position bytes, seconds, bytes at the last persist]
         self._mbs_obs: dict = {}
 
+    def _axis(self, device) -> list:
+        """The devices of a call (``axis_for``): the encoder's shard axis,
+        whose first device the call's ``device``, else the encoder's, must
+        be, or else the one device of the call, else of the encoder; the
+        card where none is set."""
+        return axis_for(self.device if device is None else device,
+                        self.mesh_axis)
+
     def _dev(self, device) -> torch.device:
-        """The device of a call: its own ``device``, else the encoder's."""
-        return resolve(self.device if device is None else device)
+        """The device of a call where the results gather: the first of
+        ``_axis``."""
+        return self._axis(device)[0]
 
     def _dev_cache_touch(self, key, topo: PreparedTopology) -> None:
         """Mark ``topo``'s device tables most recently used and drop the
@@ -703,10 +736,11 @@ class BatchEncoder:
         """Per topology group, the fused step of the position attribute and
         the NORMAL and TEX_COORD chains run on ``device`` (None: the
         encoder's ``device``, else the card; ``"cpu"`` runs the kernels'
-        plain twins) in chunks of DEVICE_CHUNK meshes; the host assembles
-        the bytes. Output equals sequential encode(). ``bits``/
-        ``normal_bits``/``uv_bits`` are the -qp/-qn/-qt depths; unset depths
-        come from ``self.cfg``.
+        plain twins), or shard by shard over the encoder's ``mesh_axis``,
+        in chunks of DEVICE_CHUNK meshes; the host assembles the bytes.
+        Output equals sequential encode(). ``bits``/``normal_bits``/
+        ``uv_bits`` are the -qp/-qn/-qt depths; unset depths come from
+        ``self.cfg``.
 
         ``entropy`` picks the rANS coder of the position symbols:
         ``"device"`` (the default) codes each chunk's meshes as lanes of one
@@ -722,7 +756,7 @@ class BatchEncoder:
         if entropy not in ("device", "host"):
             raise ValueError(f"entropy must be 'device' or 'host', "
                              f"got {entropy!r}")
-        dev = self._dev(device)
+        axis = self._axis(device)
         dflt = _device_quant_bits(self.cfg)
         if dflt is None:
             raise ValueError(
@@ -751,7 +785,7 @@ class BatchEncoder:
         for sig, idxs in groups.items():
             self._encode_group_device(meshes, sig, idxs, out, bits,
                                       normal_bits, uv_bits, cfg, entropy,
-                                      dev)
+                                      axis)
         return out
 
     def _device_plane(self, meshes: list, device=None) -> list:
@@ -772,8 +806,9 @@ class BatchEncoder:
 
     def _encode_group_device(self, meshes, sig, idxs, out, bits,
                              normal_bits, uv_bits, cfg, entropy,
-                             dev) -> None:
-        """One topology group of ``encode_meshes_device`` into ``out``."""
+                             axis) -> None:
+        """One topology group of ``encode_meshes_device`` into ``out``,
+        over the devices ``axis``."""
         t = self.timings
         clock = time.perf_counter
         t0 = clock()
@@ -791,10 +826,10 @@ class BatchEncoder:
             t0 = clock()
             dev_c = device_encode_group(
                 batch[c0:c0 + self.DEVICE_CHUNK], topo, pos_att0,
-                bits=bits, device=dev)
+                bits=bits, mesh_axis=axis)
             if entropy == "device":
-                payloads = encode_group_entropy_device(dev_c["symbols"],
-                                                       dev_c["counts"])
+                payloads = encode_group_entropy_device(
+                    dev_c["symbols"], dev_c["counts"], mesh_axis=axis)
             else:
                 payloads = _host_entropy_payloads(dev_c, bits)
             t1 = clock()
@@ -802,7 +837,7 @@ class BatchEncoder:
             # fused step uploaded: quantized once, uploaded once
             extra = _device_extra_attribute_entries(
                 meshes, chunk, topo, bits=bits, normal_bits=normal_bits,
-                uv_bits=uv_bits, device=dev, q_pos=dev_c["q_dev"])
+                uv_bits=uv_bits, q_pos=dev_c["q_dev"], mesh_axis=axis)
             t2 = clock()
             for k, i in enumerate(chunk):
                 w = ByteWriter()
@@ -912,10 +947,10 @@ class BatchEncoder:
         t1 = clock()
         dev_c = device_encode_group(pos, topo, pos_att, bits=bits,
                                     device=dev)
-        syms = dev_c["symbols"][0]
+        syms = dev_c["symbols"][0][0]
         if bits + 1 <= 16:  # zigzag symbols < 2^(bits+1): half the bytes
             syms = syms.to(torch.uint16)
-        n_counted = int(dev_c["counts"].sum())
+        n_counted = int(dev_c["counts"][0].sum())
         syms = syms.cpu().numpy()
         if n_counted != syms.size:
             raise RuntimeError(f"histogram lost symbols: {n_counted} of "
@@ -1056,6 +1091,54 @@ class BatchEncoder:
                  assembly_s=clock() - t4)
         return blob
 
+    def encode_mesh_device_stream_sharded(self, mesh, mesh_axis,
+                                          bits: int | None = None) -> bytes:
+        """One mesh with its traversal split over the stream axis
+        ``mesh_axis`` (``resolve_axis``), the counterpart of tpudraco's
+        route of the same name: the host quantizes once (C++), every
+        distinct device holds the whole quantized row and the topology's
+        gathers, and shard i runs K1 on its segment of the traversal
+        against the global residual range, then K2 on that segment
+        (``encode_step_stream_sharded``). The segments' histograms are
+        summed on the first device and must count every symbol; the
+        symbols are read back (uint16 where ``bits + 1 <= 16``) in segment
+        order, and the host's C++ rANS coder and the assembly finish the
+        mesh. Only the positions take this route: the other attributes are
+        coded by the host encoder inside the assembly. Output equals
+        ``encode()``; errors raise."""
+        bits = self._resolve_depths(bits)["bits"]
+        axis = resolve_axis(mesh_axis)
+        clock = time.perf_counter
+        t0 = clock()
+        key, topo = self._topo_for(mesh)
+        pos_att = mesh.position_attribute()
+        pos = np.ascontiguousarray(pos_att.values, np.float32)[None]
+        V, C = pos.shape[1:]
+        t1 = clock()
+        q, mins, delta_max, vmin, vmax = _host_quantize(pos, bits)
+        vmin = np.asarray(vmin, np.int32)
+        vmax = np.asarray(vmax, np.int32)
+        parts, counts = encode_step_stream_sharded(
+            q, [_device_gathers(topo, pos_att, d, V) for d in axis], vmin,
+            vmax, bits=bits, mesh_axis=axis)
+        if bits + 1 <= 16:  # zigzag symbols < 2^(bits+1): half the bytes
+            parts = [p.to(torch.uint16) for p in parts]
+        symbols = np.concatenate([p[0].cpu().numpy() for p in parts])
+        n_counted = int(counts.sum())
+        if n_counted != symbols.size:
+            raise RuntimeError(f"stream-sharded histogram lost symbols: "
+                               f"{n_counted} of {symbols.size} counted")
+        t2 = clock()
+        port = {"port_meta": mins[0].astype("<f4").tobytes()
+                + delta_max[:1].astype("<f4").tobytes() + bytes([bits]),
+                "port_values": q[0]}
+        blob = self._assemble_precomputed(mesh, topo, symbols, int(vmin[0]),
+                                          int(vmax[0]), bits, port=port)
+        self._dev_cache_touch(key, topo)
+        self.timings = {"topology_s": t1 - t0, "position_s": t2 - t1,
+                        "assembly_s": clock() - t2}
+        return blob
+
     def _resident_peak_bytes(self, mesh) -> int:
         """Estimated peak card memory of ``encode_mesh_device`` on
         ``mesh`` at ``self.cfg``'s depths (see RESIDENT_BYTES_PER_VERTEX)."""
@@ -1107,8 +1190,11 @@ class BatchEncoder:
         check (``_refused_input``) yields None and joins no group, as one
         that the host plane fails to encode does; a failure of a device
         plane raises."""
-        dev = self._dev(device)
-        self._route_dev_name = _device_name(dev)
+        axis = self._axis(device)
+        dev = axis[0]
+        # a decision measured over a shard axis routes that axis only
+        self._route_dev_name = _device_name(dev) + (
+            f" x{len(axis)}" if self.mesh_axis is not None else "")
         groups: dict[str, list[int]] = {}
         for idx, m in enumerate(meshes):
             if not _refused_input(m):

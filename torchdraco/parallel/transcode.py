@@ -43,10 +43,11 @@ def mesh_content_key(mesh) -> str:
 def transcode_corpus(inputs: list[str], out_dir: str,
                      use_device: bool = True, resume: bool = True,
                      khr_ids: str = "unique", cfg=None,
-                     device=None) -> dict:
+                     device=None, mesh_axis=None) -> dict:
     """Transcode glTF/GLB files into Draco-compressed GLBs in ``out_dir``,
     with the primitive encodes batched on ``device`` (None: the card;
-    ``"cpu"`` runs the kernels' plain twins) across all files: topology
+    ``"cpu"`` runs the kernels' plain twins), or over the shard axis
+    ``mesh_axis`` (``BatchEncoder``'s), across all files: topology
     groups span the corpus, and duplicate primitives encode once. ``cfg``
     is an optional encoder Config for every primitive (the reference's
     DracoTranscodingOptions.geometry). A quantization-only cfg (-qp/-qt/-qn,
@@ -68,7 +69,7 @@ def transcode_corpus(inputs: list[str], out_dir: str,
     else:
         cfg_for_batch = cfg  # depths resolve inside encode_meshes_device
     be = BatchEncoder(cfg=cfg_for_batch, use_device=use_device,
-                      device=device)
+                      device=device, mesh_axis=mesh_axis)
     dev = be._dev(None) if use_device else None
 
     os.makedirs(out_dir, exist_ok=True)

@@ -12,6 +12,12 @@ Every command runs its device plane on the card unless told otherwise:
 CPU, ``--host-only`` takes the host plane. Without a card and without
 either flag the command exits non-zero. Inputs may be directories
 (scanned non-recursively for known extensions) or explicit file lists.
+
+Under a launcher that sets ``WORLD_SIZE`` above 1 (torchrun, or
+``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+``MASTER_PORT`` by hand), ``encode`` runs as one process of a group
+(``torchdraco.parallel.multihost``): each encodes its slice of the
+corpus on its local rank's card and prints the totals of all.
 """
 
 from __future__ import annotations
@@ -123,10 +129,23 @@ def main(argv=None) -> int:
         inputs = _expand(args.input, ENCODE_EXTS)
         plane = ("auto" if use_device and args.route == "auto"
                  else use_device)
-        report = BatchEncoder(cfg=cfg, use_device=plane,
-                              device=args.device).encode_corpus(
-            inputs, args.output, resume=resume, workers=args.workers,
-            device_window=args.window)
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            import torch.distributed as dist
+
+            from ..parallel import encode_corpus_multihost, init_distributed
+            init_distributed()
+            try:
+                report = encode_corpus_multihost(
+                    inputs, args.output, resume=resume, use_device=plane,
+                    device=args.device, workers=args.workers, cfg=cfg,
+                    device_window=args.window)
+            finally:
+                dist.destroy_process_group()
+        else:
+            report = BatchEncoder(cfg=cfg, use_device=plane,
+                                  device=args.device).encode_corpus(
+                inputs, args.output, resume=resume, workers=args.workers,
+                device_window=args.window)
     elif args.command == "decode":
         from ..parallel import BatchDecoder
         inputs = _expand(args.input, DECODE_EXTS)
