@@ -38,7 +38,16 @@ one; the lane coder over 4 shards; the 1024 x 1024 grid over 4 stream
 shards, its summed histogram equal to phase 12's K2 row; phase 13's
 corpus in two processes joined by gloo, through encode_corpus_multihost
 and the CLI under WORLD_SIZE=2, every file equal to phase 13's; and
-torchdraco.dryrun_multichip(4). That the port's host codec
+torchdraco.dryrun_multichip(4). Then the narrow upload layouts (phase
+15): K1 on uint8 and on the 12-bit pack against its twin at the batch
+shape and at phase 12's row, timed beside the uint16 layout; the host's
+pack and cast and the pageable copy of each layout's bytes;
+encode_meshes_device at -qp 8, 11 and 15 with PACKED_UPLOAD on and off,
+positions only and with normals and UVs, every blob equal between the
+two (and to encode(): all positions-only ones, 8 textured ones a depth);
+phase 14's axis at -qp 11 both ways; and
+encode_mesh_device on phase 12's grid at -qp 8 and 11. (The main path
+itself, at -qp 11, uploads the 12-bit pack.) That the port's host codec
 equals tpudraco's is what the CPU tests show
 (tests/test_torch_host_codec.py, tests/test_torch_corpus.py); this script
 imports nothing of it.
@@ -55,11 +64,15 @@ function; the lines before that hold phase 13's walls, sweep and knobs
 (``corpus``), the three chains' device times, launches, peak memory and
 bounds and the end-to-end times of phases 10-11 (``chains``), phase
 12's (``single_mesh``) and phase 14's walls, launches and checks
-(``sharded``); each kernel's entry also counts its launches on the
-corpus (``launches_corpus``) and over the shard axis of 4
-(``launches_sharded``). K1's and K2's times are medians of BATCHES batches of 50
-launches; K4's twin runs once, over the path's 512 lanes and 512 lanes of
-random (freq, cum) pairs together, which take the kernel's exact path.
+(``sharded``) and phase 15's (``narrow``); each kernel's entry also
+counts its launches on the corpus (``launches_corpus``) and over the shard
+axis of 4 (``launches_sharded``). K1 has an entry a layout:
+``predict_residual`` (uint16, launched on the batch path at -qp 15),
+``predict_residual_p12`` (the main path) and ``predict_residual_u8``
+(-qp 8), each also at phase 12's row (``*_long_row``). K1's and K2's
+times are medians of BATCHES batches of 50 launches; K4's twin runs
+once, over the path's 512 lanes and 512 lanes of random (freq, cum) pairs
+together, which take the kernel's exact path.
 The full report (ptxas resources, every timing run, the device trace
 summary) goes to standard error as one JSON line.
 """
@@ -345,6 +358,12 @@ def main() -> int:
                 (tdev.predict_residual, tdev.histogram, trl.rans_words_scan)}
     n_patho = trl.encode_group_entropy_device.n_patho_lanes - patho0
     report["launches"] = launches
+    # K1 by upload layout: the main path's -qp 11 crosses as the 12-bit pack
+    main_layouts = dict(tdev.predict_residual.n_launches_by_layout)
+    report["k1_launches_by_layout"] = main_layouts
+    _check(main_layouts["pack12"] == launches["predict_residual"] > 0,
+           f"K1 on the main path did not read the 12-bit pack: "
+           f"{main_layouts}")
     report["patho_lanes"] = n_patho
     _check(all(n > 0 for n in launches.values()),
            f"a kernel of the main path never launched: {launches}")
@@ -1216,14 +1235,27 @@ def main() -> int:
     finally:
         shutil.rmtree(corpus_root, ignore_errors=True)
 
+    # ---- phase 15: the narrow upload layouts ---------------------------
+    torch.cuda.empty_cache()
+    narrow, k15 = _phase15(torch, np, native, tdev, tbatch, encode,
+                           reset_launch_counts, dev, sync, wall_s, cuda_ms,
+                           cuda_ms_batches, kernel_only_ms, max_abs_err,
+                           nbytes, bound, smi_line, positions, gathers,
+                           meshes, meshes3, blobs, blobs3, enc, enc3,
+                           reuse12, main_layouts)
+    errs.update({name: e["max_abs_err"] for name, e in k15.items()})
+
     # the launches of phase 13's counted path: the device plane of
     # encode_corpus over the mixed corpus, and its decode_corpus
     corpus_launches = {**corpus["encode"]["launches_manual"],
                        "rans_decode_lanes": corpus["decode"]["d1_launches"]}
     src = "torchdraco/ops/csrc/"
+    # K1's row is the uint16 layout's: its launches are those of the path
+    # that uploads uint16, the batch path at -qp 15 (phase 15.4)
     table = [
         ("predict_residual", "predict_residual.cu",
-         "tpudraco/ops/pallas_kernels.py:174", launches),
+         "tpudraco/ops/pallas_kernels.py:174",
+         {"predict_residual": narrow["u16_launches"]}),
         ("histogram", "histogram.cu", "tpudraco/ops/pallas_kernels.py:71",
          launches),
         ("rans_words_scan", "rans_words.cu",
@@ -1254,21 +1286,34 @@ def main() -> int:
                      "bound_by", "library_ms", "bytes", "share_of_bound",
                      "kernel_only_ms", "shape")}}
                 for name, e in k12.items()]
+    kernels[0]["layout"] = "u16"
+    kernels += [{"name": name, "route": "cuda", "source": src + e["file"],
+                 **{key: e[key] for key in (
+                     "replaces", "layout", "launched_on", "launches",
+                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                     "library_ms", "bytes", "share_of_bound",
+                     "kernel_only_ms", "shape")}}
+                for name, e in k15.items()]
     _check(all(e["launches"] > 0 and e["max_abs_err"] == 0
-               for e in k12.values()),
-           f"a long-row kernel: {k12}")
+               for e in (*k12.values(), *k15.values())),
+           f"a long-row or narrow-layout kernel: {k12} {k15}")
+    _check(all(e["launches"] > 0 for e in kernels if e["name"] in (
+        "predict_residual", "histogram", "rans_words_scan")),
+           "a kernel of the main path or of the -qp 15 path never launched")
     print("chip_smoke details: " + json.dumps({**report, "chains": chains,
                                                "single_mesh": single,
                                                "corpus": corpus,
                                                "sharded": sharded,
+                                               "narrow": narrow,
                                                "kernels": kernels}),
           file=sys.stderr)
     report["run_s"] = time.perf_counter() - t_start
-    print(f"chip_smoke: phases 1-14 in {report['run_s']:.1f} s")
+    print(f"chip_smoke: phases 1-15 in {report['run_s']:.1f} s")
     print(json.dumps({"single_mesh": single}))
     print(json.dumps({"chains": chains}))
     print(json.dumps({"corpus": corpus}))
     print(json.dumps({"sharded": sharded}))
+    print(json.dumps({"narrow": narrow}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1469,7 +1514,9 @@ def _phase12(torch, np, torchdraco, encode, tdev, tbatch,
     pos_att = mesh1.position_attribute()
     dev_c = tbatch.device_encode_group(pos, topo, pos_att, bits=BITS,
                                        device=dev)
-    q = dev_c["q_dev"][0]
+    # the uint16 row, as before the narrow layouts (the resident route
+    # uploads the 12-bit pack at -qp 11: phase 15.1 times each layout)
+    q = torch.from_numpy(dev_c["q"]).to(dev)
     g = tbatch._device_gathers(topo, pos_att, dev, V)
     lo = torch.from_numpy(dev_c["vmin"]).to(dev)
     hi = torch.from_numpy(dev_c["vmax"]).to(dev)
@@ -1680,6 +1727,295 @@ def _phase12(torch, np, torchdraco, encode, tdev, tbatch,
     reuse = {"enc": enc, "mesh": mesh1, "blob": ref1, "q": q, "gathers": g,
              "vmin": lo, "vmax": hi, "symbols": sym, "counts": counts}
     return one, k12, reuse
+
+
+def _phase15(torch, np, native, tdev, tbatch, encode, reset_launch_counts,
+             dev, sync, wall_s, cuda_ms, cuda_ms_batches, kernel_only_ms,
+             max_abs_err, nbytes, bound, smi_line, positions, gathers,
+             meshes, meshes3, blobs, blobs3, enc, enc3, reuse12,
+             main_layouts):
+    """The narrow upload layouts: uint8 at -qp <= 8 and the 12-bit pack at
+    <= 12 (``parallel/batch.py`` ``upload_layout``). 15.1: K1 on each
+    layout against its twin at the batch shape and at phase 12's row,
+    with its times beside the uint16 layout's; 15.2: the host's pack and
+    cast; 15.3: the copy of each layout's bytes from pageable numpy
+    buffers; 15.4: encode_meshes_device at -qp 8, 11 and 15 with
+    PACKED_UPLOAD on and off, positions only and with normals and UVs,
+    every blob equal between the two, the positions-only ones to encode()
+    (the textured ones: 8 a depth, and at -qp 11 all to phase 10's);
+    15.5: phase 14's
+    axis of SHARDS[-1] shards at -qp 11, both ways, equal to phase 10;
+    15.6: encode_mesh_device on phase 12's grid at -qp 8 and 11, both
+    ways, equal to the host plane. Returns (the phase's record, {kernel
+    line name: entry})."""
+    from torchdraco.encode import Config
+    from torchdraco.models import AttributeType
+
+    t_phase = time.perf_counter()
+    rec = {"card": smi_line}
+
+    def by_layout():
+        return dict(tdev.predict_residual.n_launches_by_layout)
+
+    def upload(q_host, layout):
+        if layout == "u8":
+            return torch.from_numpy(q_host.astype(np.uint8)).to(dev)
+        if layout == "pack12":
+            return tuple(torch.from_numpy(a).to(dev)
+                         for a in native.pack12(q_host))
+        return torch.from_numpy(q_host).to(dev)
+
+    # 15.1: K1 on each layout, at the batch shape and at one row
+    k1 = {}
+    row_pos = np.ascontiguousarray(
+        reuse12["mesh"].position_attribute().values, np.float32)[None]
+    for where, pos_f, g, kernel in (
+            ("batch", positions, gathers, "predict_rows_kernel"),
+            ("row", row_pos, reuse12["gathers"], "predict_gather_kernel")):
+        sym11 = None
+        for layout, qp in (("u16", 11), ("pack12", 11), ("u8", 8)):
+            q_host, _, _, vmin, vmax = native.quantize_batch(pos_f, qp)
+            lo = torch.from_numpy(vmin).to(dev)
+            hi = torch.from_numpy(vmax).to(dev)
+            up = upload(q_host, layout)
+            parts = up if isinstance(up, tuple) else (up,)
+            staged = 1 if layout == "u8" else 2
+            _check(tdev.predict_fits_smem(pos_f.shape[1], 3, staged)
+                   == (where == "batch"),
+                   f"15.1: K1's kernel choice for {layout} at the {where}")
+            sym = tdev.predict_residual(up, g, lo, hi)
+            sync()
+            err = max_abs_err(sym, tdev.predict_residual_ref(up, g, lo, hi))
+            if qp == 11:  # the pack reads the same values as uint16
+                if sym11 is None:
+                    sym11 = sym
+                else:
+                    err = max(err, max_abs_err(sym, sym11))
+            runs = cuda_ms_batches(lambda: tdev.predict_residual(up, g, lo,
+                                                                 hi))
+            ops = 12 * sym.numel() + (6 * q_host.size if layout == "pack12"
+                                      else 0)
+            k1.setdefault(where, {})[layout] = {
+                "shape": list(q_host.shape), "qp": qp,
+                "max_abs_err": err, "ms": runs["median"], "ms_runs": runs,
+                "plain_ms": cuda_ms(lambda: tdev.predict_residual_ref(
+                    up, g, lo, hi), 5),
+                "kernel_only_ms": kernel_only_ms(
+                    lambda: tdev.predict_residual(up, g, lo, hi), kernel,
+                    reps=10),
+                **bound(nbytes(*parts, lo, hi, sym, *g.values()), ops)}
+            del up, parts, sym
+        del sym11
+    rec["k1"] = k1
+    errs = [e["max_abs_err"] for w in k1.values() for e in w.values()]
+    _check(all(e == 0 for e in errs), f"15.1: K1 on a layout differs from "
+           f"its twin: {errs}")
+    print("phase 15.1: K1 equals its twin on each layout (the pack also "
+          "the uint16 layout's symbols); wrapper ms (median of "
+          f"{BATCHES} x 50), alone ms, bound ms: " + "; ".join(
+              f"{w} {lay} {e['ms']:.4f}, {e['kernel_only_ms']:.4f}, "
+              f"{e['bound_ms']:.4f} ({e['bytes'] / 1e6:.2f} MB)"
+              for w, d in k1.items() for lay, e in d.items()))
+
+    # 15.2-15.3: the host's share and the copy, on the batch's values
+    q11 = native.quantize_batch(positions, 11)[0]
+    q8 = native.quantize_batch(positions, 8)[0]
+
+    def host_ms(fn, reps=5):
+        runs = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        return sorted(runs)[reps // 2]
+    host = {"quantize_11_ms": host_ms(lambda: native.quantize_batch(
+                positions, 11)),
+            "pack12_ms": host_ms(lambda: native.pack12(q11)),
+            "u8_cast_ms": host_ms(lambda: q8.astype(np.uint8))}
+    bufs = {"u16": (q11,), "pack12": native.pack12(q11),
+            "u8": (q8.astype(np.uint8),)}
+    h2d = {k: [] for k in bufs}
+    order = list(bufs)
+    for r in range(6):  # in turns, the order reversed every other round
+        for k in (order if r % 2 == 0 else order[::-1]):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            sync()
+            start.record()
+            moved = [torch.from_numpy(a).to(dev) for a in bufs[k]]
+            end.record()
+            end.synchronize()
+            h2d[k].append(start.elapsed_time(end))
+            del moved
+    copy = {k: {"mb": sum(a.nbytes for a in bufs[k]) / 1e6,
+                "ms_runs": v, "ms": sorted(v)[len(v) // 2]}
+            for k, v in h2d.items()}
+    for v in copy.values():
+        v["gb_s"] = v["mb"] / v["ms"]
+    rec["host"], rec["h2d"] = host, copy
+    print(f"phase 15.2: host ms on {q11.size} values: quantize (-qp 11) "
+          f"{host['quantize_11_ms']:.2f}, pack12 {host['pack12_ms']:.2f}, "
+          f"uint8 cast {host['u8_cast_ms']:.2f}")
+    print("phase 15.3: pageable H2D (CUDA events, median of 6 in turns): "
+          + "; ".join(f"{k} {v['mb']:.2f} MB {v['ms']:.3f} ms "
+                      f"({v['gb_s']:.1f} GB/s)" for k, v in copy.items()))
+    del bufs, q11, q8
+
+    # 15.4: the batch path at three depths, both ways
+    e2e, path_launches = {}, {}
+    knobs = {"positions": (True, False, False, True),
+             "textured": (True, False)}
+    try:
+        for qp, layout in ((8, "u8"), (11, "pack12"), (15, "u16")):
+            cfg = Config(quant_bits={AttributeType.POSITION: qp})
+            for name, encoder, ms_ in (("positions", enc, meshes),
+                                       ("textured", enc3, meshes3)):
+                runs, got_by = {True: [], False: []}, {}
+                for knob in knobs[name]:
+                    tbatch.PACKED_UPLOAD = knob
+                    reset_launch_counts()
+                    got, secs = wall_s(lambda: encoder.encode_meshes_device(
+                        ms_, bits=qp))
+                    lay = by_layout()
+                    want_layout = layout if knob else "u16"
+                    _check(lay == {k: int(k == want_layout) for k in lay},
+                           f"15.4 -qp {qp} {name} knob {knob}: K1 "
+                           f"launches by layout {lay}")
+                    if knob and name == "positions":
+                        path_launches[layout] = lay[layout]
+                    _check(got_by.setdefault(knob, got) == got,
+                           f"15.4 -qp {qp} {name}: two runs differ")
+                    runs[knob].append({
+                        "s": secs, "layout": want_layout,
+                        **{k: encoder.timings[k] for k in (
+                            "position_s", "chains_s", "h2d_mb")}})
+                _check(got_by[True] == got_by[False],
+                       f"15.4 -qp {qp} {name}: PACKED_UPLOAD on and off "
+                       f"differ")
+                if qp == 11:
+                    _check(got_by[True] == (blobs if name == "positions"
+                                            else blobs3),
+                           f"15.4 -qp 11 {name}: differs from the main "
+                           f"path's blobs")
+                # every positions-only blob against encode(); of the
+                # textured ones (about 20 ms a mesh on the host) 8, beside
+                # their equality to phase 10's, which met the host plane
+                sample = (range(len(ms_)) if name == "positions"
+                          else range(0, len(ms_), len(ms_) // 8))
+                bad = [i for i in sample
+                       if got_by[True][i] != encode(ms_[i], cfg=cfg)]
+                _check(not bad, f"15.4 -qp {qp} {name}: blobs {bad} differ "
+                       f"from encode()")
+                share = runs[True][0]["h2d_mb"] / runs[False][0]["h2d_mb"]
+                _check(abs(share - {"u8": 0.5, "pack12": 0.75}.get(
+                    layout, 1.0)) < 1e-9, f"15.4 -qp {qp}: h2d_mb share "
+                       f"{share}")
+                e2e[f"qp{qp}_{name}"] = {"layout": layout, "on": runs[True],
+                                         "off": runs[False]}
+    finally:
+        tbatch.PACKED_UPLOAD = True
+    rec["encode_meshes_device"] = e2e
+
+    def mean(rs, k):
+        return sum(r[k] for r in rs) / len(rs)
+    print("phase 15.4: encode_meshes_device, every blob equal with "
+          "PACKED_UPLOAD on and off, every positions-only blob and 8 "
+          "textured ones at each depth equal to encode(); position_s "
+          "on / off (h2d_mb on / off): " + "; ".join(
+              f"{k} {mean(v['on'], 'position_s'):.4f} / "
+              f"{mean(v['off'], 'position_s'):.4f} "
+              f"({v['on'][0]['h2d_mb']:.2f} / {v['off'][0]['h2d_mb']:.2f})"
+              for k, v in e2e.items()))
+
+    # 15.5: phase 14's axis at -qp 11, both ways
+    n = SHARDS[-1]
+    axis = ([torch.device("cuda", i) for i in range(n)]
+            if torch.cuda.device_count() >= n else [dev] * n)
+    sharded = {}
+    try:
+        for knob in (True, False):
+            tbatch.PACKED_UPLOAD = knob
+            enc_n = tbatch.BatchEncoder(mesh_axis=axis)
+            reset_launch_counts()
+            got, secs = wall_s(lambda: enc_n.encode_meshes_device(meshes3))
+            lay = by_layout()
+            want_layout = "pack12" if knob else "u16"
+            _check(lay[want_layout] == n and sum(lay.values()) == n,
+                   f"15.5 knob {knob}: K1 launches by layout {lay}")
+            _check(got == blobs3, f"15.5 knob {knob}: the blobs over {n} "
+                   f"shards differ from phase 10's")
+            sharded["on" if knob else "off"] = {
+                "s": secs, "launches": lay,
+                **{k: enc_n.timings[k] for k in ("position_s", "h2d_mb")}}
+    finally:
+        tbatch.PACKED_UPLOAD = True
+    rec["sharded"] = sharded
+    print(f"phase 15.5: {len(meshes3)} pos+normal+UV meshes over {axis} at "
+          f"-qp 11 equal phase 10's with the pack "
+          f"({sharded['on']['s']:.3f} s) and without "
+          f"({sharded['off']['s']:.3f} s), K1 once a shard in its layout")
+
+    # 15.6: the resident route on phase 12's grid, both ways
+    enc12, mesh = reuse12["enc"], reuse12["mesh"]
+    single, row_launches = {}, {}
+    try:
+        for qp in (8, 11):
+            cfg = Config(quant_bits={AttributeType.POSITION: qp})
+            want = (reuse12["blob"] if qp == 11
+                    else enc12.encode_mesh(mesh, cfg=cfg))
+            for knob in (True, False):
+                tbatch.PACKED_UPLOAD = knob
+                reset_launch_counts()
+                blob, secs = wall_s(lambda: enc12.encode_mesh_device(
+                    mesh, bits=qp))
+                lay = by_layout()
+                want_layout = tbatch.upload_layout(qp)
+                _check(lay == {k: int(k == want_layout) for k in lay},
+                       f"15.6 -qp {qp} knob {knob}: launches {lay}")
+                _check(blob == want, f"15.6 -qp {qp} knob {knob}: the "
+                       f"resident blob differs from the host plane's")
+                if knob:
+                    row_launches[want_layout] = lay[want_layout]
+                single[f"qp{qp}_{'on' if knob else 'off'}"] = {
+                    "s": secs, "layout": want_layout,
+                    "position_s": enc12.timings["position_s"]}
+    finally:
+        tbatch.PACKED_UPLOAD = True
+    rec["encode_mesh_device"] = single
+    print(f"phase 15.6: encode_mesh_device on the "
+          f"{mesh.position_attribute().num_points}-vertex grid at -qp 8 "
+          f"and 11, the pack on and off, equal to the host plane; "
+          + ", ".join(f"{k} {v['s']:.3f} s (position_s "
+                      f"{v['position_s']:.4f})" for k, v in single.items()))
+
+    replaces = {
+        "u8": "tpudraco/ops/pallas_kernels.py:174 on the uint8 upload of "
+              "tpudraco/parallel/batch.py:1587 (_jit_step_pallas_q :1643)",
+        "pack12": "tpudraco/ops/pallas_kernels.py:174 after the unpack of "
+                  "tpudraco/parallel/batch.py:1739 _jit_step_pallas_p12"}
+    entries = {}
+    for layout, name, launches in (
+            ("u8", "predict_residual_u8", path_launches["u8"]),
+            ("pack12", "predict_residual_p12", main_layouts["pack12"])):
+        for where, suffix, runs_on in (
+                ("batch", "", "phase 15.4 -qp 8" if layout == "u8"
+                 else "phase 3, the main path"),
+                ("row", "_long_row", "phase 15.6")):
+            e = k1[where][layout]
+            entries[name + suffix] = {
+                "file": "predict_residual.cu", "replaces": replaces[layout],
+                "layout": layout, "launched_on": runs_on,
+                "launches": (launches if where == "batch"
+                             else row_launches[layout]),
+                "share_of_bound": e["bound_ms"] / e["ms"],
+                "library_ms": None,
+                **{k: e[k] for k in ("shape", "max_abs_err", "ms",
+                                     "plain_ms", "bound_ms", "bound_by",
+                                     "bytes", "kernel_only_ms")}}
+    rec["u16_launches"] = path_launches["u16"]
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 15: {rec['phase_s']:.1f} s")
+    return rec, entries
 
 
 def _router_knobs(sweep: dict, chunk: int) -> dict:

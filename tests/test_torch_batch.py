@@ -339,7 +339,7 @@ def test_slice_with_normals_and_uvs_bytes_match(monkeypatch, kind, depths):
                                    uv_bits=qt, device="cpu")
     assert enc.n_host_attributes == 0
     assert set(enc.timings) == {"signatures_s", "topology_s", "position_s",
-                                "chains_s", "assembly_s"}
+                                "chains_s", "assembly_s", "h2d_mb"}
     _no_host_fallback(monkeypatch)
     want_jax = JaxBatchEncoder(strict_device=True).encode_meshes_device(
         meshes, bits=qp, normal_bits=qn, uv_bits=qt, entropy="device")
@@ -494,9 +494,12 @@ def test_chunks_share_the_uploaded_positions(monkeypatch):
     assert tbatch.BatchEncoder().encode_meshes_device(
         meshes, device="cpu") == want
     assert [idxs for idxs, _ in seen] == [[0, 1], [2, 3], [4]]
-    # one shard: the axis is the one device
-    assert all(len(q) == 1 and isinstance(q[0], torch.Tensor)
-               and q[0].dtype == torch.uint16 and q[0].shape[0] == len(idxs)
+    # one shard: the axis is the one device; at -qp 11 the upload is the
+    # 12-bit pack, lo (B, V, C) and hb (B, ceil(V * C / 2)) uint8
+    assert all(len(q) == 1 and isinstance(q[0], tuple)
+               and [p.dtype for p in q[0]] == [torch.uint8] * 2
+               and q[0][0].shape == (len(idxs), 36, 3)
+               and q[0][1].shape == (len(idxs), 54)
                for idxs, q in seen)
     # per chunk: the positions once, the UVs once
     assert [s[-1] for s in quantized] == [3, 2] * 3

@@ -230,6 +230,41 @@ def test_predict_residual_kernel_shapes(cuda, C, dtype, B, V, T):
     assert torch.equal(got, tdev.predict_residual_ref(qt, g, vmin, vmax))
 
 
+@pytest.mark.parametrize("layout", ("u8", "pack12"))
+@pytest.mark.parametrize("V,C", [(49, 3), (37, 5), (45001, 3)])
+def test_predict_residual_narrow_layouts(cuda, layout, V, C):
+    """K1 reading uint8 (8 bits) and the 12-bit pack (12 bits) at B = 3
+    with an odd V * C, so that the rows of meshes 1 and 2 start unaligned:
+    the shared-memory kernel at 49 x 3, the direct-gather kernel at C = 5
+    and past the shared-memory budget. Equal to the twin on the int32
+    values, and counted under its layout."""
+    bits = 8 if layout == "u8" else 12
+    assert tdev.predict_fits_smem(V, C, 1 if layout == "u8" else 2) == (
+        V == 49)
+    rng = np.random.default_rng(V * C)
+    q = rng.integers(0, 1 << bits, size=(3, V, C)).astype(np.uint16)
+    T = V + 17
+    g = {k: torch.from_numpy(rng.integers(0, V, size=T).astype(np.int32))
+         .to(cuda) for k in ("order", "next", "prev", "opp", "fallback")}
+    g["can_para"] = torch.from_numpy(rng.random(T) < 0.7).to(cuda)
+    g["has_fallback"] = torch.from_numpy(rng.random(T) < 0.6).to(cuda)
+    vmin = torch.from_numpy(q.min(axis=(1, 2)).astype(np.int32)).to(cuda)
+    vmax = torch.from_numpy(q.max(axis=(1, 2)).astype(np.int32)).to(cuda)
+    if layout == "u8":
+        up = torch.from_numpy(q.astype(np.uint8)).to(cuda)
+    else:
+        up = tuple(torch.from_numpy(a).to(cuda)
+                   for a in torchdraco.native.pack12(q))
+    n0 = tdev.predict_residual.n_launches_by_layout[layout]
+    got = tdev.predict_residual(up, g, vmin, vmax)
+    torch.cuda.synchronize()
+    assert tdev.predict_residual.n_launches_by_layout[layout] == n0 + 1
+    want = tdev.predict_residual_ref(
+        torch.from_numpy(q.astype(np.int32)).to(cuda), g, vmin, vmax)
+    assert torch.equal(got, want)
+    assert torch.equal(tdev.predict_residual_ref(up, g, vmin, vmax), want)
+
+
 def _lanes(rng, L, T, prec, alphabet, per_lane):
     counts = rng.integers(0, T + 1, size=L)
     counts[0], counts[1] = T, 0
@@ -453,8 +488,10 @@ def test_sharded_group_encode_on_the_card(cuda, entropy):
     att = meshes[0].position_attribute()
     whole = tbatch.device_encode_group(pos, topo, att, device=cuda)
     got = tbatch.device_encode_group(pos, topo, att, mesh_axis=axis)
-    for k in ("symbols", "counts", "q_dev"):
+    for k in ("symbols", "counts"):
         assert torch.equal(torch.cat(got[k]), whole[k][0])
+    assert torch.equal(torch.cat([tdev.widen(q) for q in got["q_dev"]]),
+                       tdev.widen(whole["q_dev"][0]))
     want = tbatch.BatchEncoder().encode_meshes_device(meshes, entropy=entropy)
     counted = (tdev.predict_residual, tdev.histogram, trl.rans_words_scan)
     before = [fn.n_launches for fn in counted]

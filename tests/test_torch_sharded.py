@@ -172,6 +172,11 @@ def test_device_encode_group_shards_the_batch(n):
         b - a for a, b in shard_bounds(5, n)]
     for k in ("symbols", "counts", "q_dev"):
         assert len(got[k]) == n and len(whole[k]) == 1
+        if k == "q_dev":  # the 12-bit pack at -qp 11, cut on its rows
+            assert tdev.upload_layout_of(whole[k][0]) == "pack12"
+            assert torch.equal(torch.cat([tdev.widen(q) for q in got[k]]),
+                               tdev.widen(whole[k][0]))
+            continue
         assert torch.equal(torch.cat(got[k]), whole[k][0])
     for k in ("vmin", "vmax", "mins", "delta_max", "q"):
         assert np.array_equal(got[k], whole[k])

@@ -144,7 +144,10 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
       the step on one device;
     - ``BatchEncoder(mesh_axis=)`` over all n devices against ``encode()``
       with both coders, then with normals and UVs through the sharded
-      chains, then at ``-qp`` 8, 11, 15 (uint16 upload) and 18 (int32);
+      chains, then at ``-qp`` 8 (uint8 upload), 11 (the 12-bit pack), 15
+      (uint16) and 18 (int32), and at 8 and 11 again with
+      ``parallel.batch.PACKED_UPLOAD`` off (uint16), whose bytes must
+      equal the narrow layouts';
     - ``encode_mesh_device_stream_sharded`` over all n against
       ``encode()``."""
     import torch
@@ -153,8 +156,9 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     from .encode import Config, encode
     from .models import AttributeType
     from .ops import encode_step_from_q_cuda, encode_step_stream_sharded
+    from .parallel import batch as pbatch
     from .parallel.batch import (BatchEncoder, PreparedTopology,
-                                 device_encode_group)
+                                 device_encode_group, upload_layout)
 
     def check(ok: bool, what: str) -> None:
         if not ok:
@@ -207,11 +211,26 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     got = enc.encode_meshes_device(textured)
     check(got == [encode(m) for m in textured] and enc.n_host_attributes == 0,
           "sharded NORMAL/UV chain bytes diverge from encode()")
+    layouts, by_depth = {}, {}
     for depth in (8, 11, 15, 18):
         cfg = Config(quant_bits={AttributeType.POSITION: depth})
+        layouts[depth] = upload_layout(depth)
         got = BatchEncoder(mesh_axis=axis, cfg=cfg).encode_meshes_device(few)
         check(got == [encode(m, cfg=cfg) for m in few],
-              f"sharded bytes at -qp {depth} diverge from encode()")
+              f"sharded {layouts[depth]} upload bytes at -qp {depth} "
+              f"diverge from encode()")
+        by_depth[depth] = got
+    packed_was = pbatch.PACKED_UPLOAD
+    try:
+        pbatch.PACKED_UPLOAD = False
+        for depth in (8, 11):
+            cfg = Config(quant_bits={AttributeType.POSITION: depth})
+            got = BatchEncoder(mesh_axis=axis,
+                               cfg=cfg).encode_meshes_device(few)
+            check(got == by_depth[depth], f"the packed-off twin diverges "
+                  f"from the {layouts[depth]} upload at -qp {depth}")
+    finally:
+        pbatch.PACKED_UPLOAD = packed_was
     blob = BatchEncoder().encode_mesh_device_stream_sharded(meshes[0], axis)
     check(blob == encode(meshes[0]),
           "stream-sharded single-mesh bytes diverge from encode()")
@@ -220,4 +239,6 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
           f"{tuple(want_s.shape)} and histograms {tuple(want_c.shape)} equal "
           f"the single-device step; {len(few)} meshes equal encode() with "
           f"both coders, {len(textured)} with normals and UVs, and at -qp "
-          f"8, 11, 15 and 18; the stream-sharded mesh equals encode()")
+          + ", ".join(f"{d} ({v})" for d, v in layouts.items())
+          + "; the packed-off twin equals them at -qp 8 and 11; the "
+          "stream-sharded mesh equals encode()")

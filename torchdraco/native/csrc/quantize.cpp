@@ -139,8 +139,9 @@ int32_t tdn_quantize_batch(const float* vals, int64_t B, int64_t V,
 
 // 12-bit upload pack: split each uint16 value (< 4096) into a low byte
 // and a 4-bit high nibble; nibbles pack in pairs (even index -> low
-// nibble). The device unpacks with two shifts and an OR
-// (unpack12_kernel, not ported yet), so the H2D transfer carries 1.5
+// nibble). The device reads the pack directly (K1,
+// ops/csrc/predict_residual.cu) or unpacks it with two shifts and an OR
+// (ops/device.py unpack12_kernel), so the H2D transfer carries 1.5
 // bytes/value instead of 2. One linear pass;
 // n may be odd (the final nibble pairs with zero).
 void tdn_pack12(const uint16_t* q, int64_t n, uint8_t* lo, uint8_t* hb) {

@@ -10,7 +10,8 @@ from .device import (
     histogram, minmax_chunk_kernel, parallelogram_predict_kernel,
     predict_residual, predict_residual_ref, quantize_kernel,
     quantize_rows_kernel, quantized_range_chunk_kernel, unpack12_kernel,
-    unzigzag_kernel, wrapped_difference_kernel, zigzag_kernel,
+    unzigzag_kernel, upload_layout_of, widen, wrapped_difference_kernel,
+    zigzag_kernel,
 )
 from .rans_lanes import (
     encode_direct_coded_streams_device, encode_group_entropy_device,
@@ -27,6 +28,8 @@ def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     for fn in KERNEL_WRAPPERS:
         fn.n_launches = 0
+    predict_residual.n_launches_by_layout = dict.fromkeys(
+        predict_residual.n_launches_by_layout, 0)
 
 
 __all__ = [
@@ -42,5 +45,6 @@ __all__ = [
     "rans_decode_lanes_ref", "rans_encode_lanes", "rans_scan_dense",
     "rans_scan_dense_ref", "rans_words_scan", "rans_words_scan_ref",
     "reset_launch_counts", "unpack12_kernel", "unzigzag_kernel",
-    "wrapped_difference_kernel", "zigzag_kernel",
+    "upload_layout_of", "widen", "wrapped_difference_kernel",
+    "zigzag_kernel",
 ]

@@ -40,9 +40,10 @@ _I32 = ctypes.c_int32
 
 # entry point -> argtypes; every pointer (and the stream) is c_void_p
 _SIGNATURES = {
-    "tdr_predict_residual_u16": [_P] * 10 + [_P, _I64, _I64, _I64, _I32,
-                                            _I32, _P],
-    "tdr_predict_residual_i32": [_P] * 10 + [_P, _I64, _I64, _I64, _I32,
+    **{f"tdr_predict_residual_{layout}": [_P] * 10 + [_P, _I64, _I64, _I64,
+                                                     _I32, _I32, _P]
+       for layout in ("u8", "u16", "i32")},
+    "tdr_predict_residual_p12": [_P] * 11 + [_P, _I64, _I64, _I64, _I32,
                                             _I32, _P],
     "tdr_histogram": [_P, _I64, _I64, _I32, _P, _I32, _I32, _P],
     "tdr_rans_words": [_P, _P, _P, _I64, _P, _P, _I64, _I64, _I64, _P, _P,

@@ -16,6 +16,16 @@
 // gather arrays are shared by every mesh. At B=512, V=T=4096, C=3 that is
 // 12.6 MB in and 25.2 MB out, 11 us at 3.35 TB/s.
 //
+// q comes in the layout it crossed the link in (parallel/batch.py
+// upload_layout): uint8 (at most 8 bits), the 12-bit pack (at most 12),
+// uint16 (at most 16) or int32. The pack is native.pack12's: value i of a
+// mesh's row is lo[i] | ((hb[i >> 1] >> ((i & 1) * 4)) & 0xF) << 8, with
+// lo (B, V*C) bytes and hb (B, ceil(V*C / 2)) bytes, the nibbles paired
+// within a row (an odd row's last nibble pairs with zero). Each layout is
+// a source type (Plain<QT>, Pack12) that the kernels take as a template
+// argument; the pack is undone where a value is read, so no unpacked copy
+// of q is written to device memory.
+//
 // Two kernels, chosen by the caller from the shape alone:
 //
 // predict_rows_kernel (the rule): a block owns one mesh. It brings the
@@ -40,9 +50,14 @@
 // from the topology; the first version of this kernel took 0.047 ms for
 // it, no less than the direct gathers it replaced).
 //
+// The 12-bit pack is unpacked while the row is staged: a thread reads 4
+// bytes of lo and 2 of hb (coalesced) and writes 4 uint16 values of the
+// skewed row, so the gather phase reads the same uint16 row as for the
+// uint16 layout. uint8 rows are staged as they are, 4 values a copy.
+//
 // predict_gather_kernel: one thread per row gathering from device memory,
 // for q rows past the shared-memory budget (huge meshes) and for more than
-// 4 components.
+// 4 components; it unpacks the 12-bit layout at each read.
 
 #include <cstdint>
 #include <cstring>
@@ -117,44 +132,106 @@ __device__ __host__ __forceinline__ int skewed_row(int row_len) {
   return (skewed<QT>(row_len) + PER_16) / PER_16 * PER_16;
 }
 
-// Dynamic shared memory: [skewed_row(V * C)] QT, then
+// A q layout: Smem is the type of a staged row's elements, at() reads
+// value i of mesh b's row of row_len values from device memory.
+template <typename QT>
+struct Plain {
+  using Smem = QT;
+  const QT* q;
+  __device__ __forceinline__ int32_t at(int64_t b, int64_t row_len,
+                                        int64_t i) const {
+    return (int32_t)q[b * row_len + i];
+  }
+};
+
+struct Pack12 {
+  using Smem = uint16_t;
+  const uint8_t* lo;
+  const uint8_t* hb;
+  __device__ __forceinline__ int32_t at(int64_t b, int64_t row_len,
+                                        int64_t i) const {
+    const uint8_t h = hb[b * ((row_len + 1) >> 1) + (i >> 1)];
+    return (int32_t)lo[b * row_len + i]
+           | (int32_t)((h >> ((i & 1) * 4)) & 0xF) << 8;
+  }
+};
+
+// Mesh b's row into the skewed shared row qb, by all ROWS_THREADS threads:
+// 4-byte asynchronous copies where the row starts 4-byte aligned, the
+// last row_len % (4 / sizeof(QT)) values by plain stores.
+template <typename QT>
+__device__ __forceinline__ void stage_row(const Plain<QT>& src, QT* qb,
+                                          int64_t b, int row_len,
+                                          int tid) {
+  constexpr int PER_WORD = 4 / (int)sizeof(QT);
+  const QT* q = src.q + b * row_len;
+  int whole = 0;
+  if (((uintptr_t)q & 3) == 0) {
+    whole = row_len / PER_WORD * PER_WORD;
+    for (int e = tid * PER_WORD; e < whole; e += ROWS_THREADS * PER_WORD)
+      copy4_async(qb + skewed<QT>(e), q + e);
+  }
+  for (int e = whole + tid; e < row_len; e += ROWS_THREADS)
+    qb[skewed<QT>(e)] = q[e];
+  copy_async_wait();
+}
+
+// The 12-bit pack into a uint16 row: where lo starts 4-byte aligned and
+// hb 2-byte aligned, a thread unpacks 4 values from one 4-byte load of lo
+// and one 2-byte load of hb (nibbles of values e .. e + 3 in bits 0-15,
+// low first) and stores them as two words (the 4 values share a line of
+// the skewed row, e being a multiple of 4); the rest value by value.
+__device__ __forceinline__ void stage_row(const Pack12& src, uint16_t* qb,
+                                          int64_t b, int row_len, int tid) {
+  const uint8_t* lo = src.lo + b * row_len;
+  const uint8_t* hb = src.hb + b * ((row_len + 1) >> 1);
+  int whole = 0;
+  if (((uintptr_t)lo & 3) == 0 && ((uintptr_t)hb & 1) == 0) {
+    whole = row_len / 4 * 4;
+    for (int e = tid * 4; e < whole; e += ROWS_THREADS * 4) {
+      const uint32_t l = *(const uint32_t*)(lo + e);
+      const uint32_t h = *(const uint16_t*)(hb + (e >> 1));
+      uint32_t* dst = (uint32_t*)(qb + skewed<uint16_t>(e));
+      dst[0] = (l & 0xFFu) | ((h & 0xFu) << 8) | ((l & 0xFF00u) << 8)
+               | ((h & 0xF0u) << 20);
+      dst[1] = ((l >> 16) & 0xFFu) | ((h & 0xF00u)) | ((l >> 24) << 16)
+               | ((h & 0xF000u) << 12);
+    }
+  }
+  for (int e = whole + tid; e < row_len; e += ROWS_THREADS) {
+    const uint8_t h = hb[e >> 1];
+    qb[skewed<uint16_t>(e)] =
+        (uint16_t)(lo[e] | (((h >> ((e & 1) * 4)) & 0xF) << 8));
+  }
+}
+
+// Dynamic shared memory: [skewed_row(V * C)] Src::Smem, then
 // [ROWS_WARPS][32 * C] int32 of staged symbols.
-template <typename QT, int C>
+template <typename Src, int C>
 __global__ void __launch_bounds__(ROWS_THREADS) predict_rows_kernel(
-    const QT* __restrict__ q, const int32_t* __restrict__ order,
+    Src src, const int32_t* __restrict__ order,
     const int32_t* __restrict__ nxt, const int32_t* __restrict__ prv,
     const int32_t* __restrict__ opp, const int32_t* __restrict__ fb,
     const uint8_t* __restrict__ can_para, const uint8_t* __restrict__ has_fb,
     const int32_t* __restrict__ vmin, const int32_t* __restrict__ vmax,
     int32_t* __restrict__ out, int64_t V, int64_t T) {
+  using QT = typename Src::Smem;
   extern __shared__ uint4 smem[];
   __shared__ Range range;
-  constexpr int PER_WORD = 4 / (int)sizeof(QT);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int64_t b = blockIdx.x;
-  const int row_len = (int)(V * C);  // elements of one mesh's q
+  const int row_len = (int)(V * C);  // values of one mesh's q
   const int row_smem = skewed_row<QT>(row_len);
   QT* qb = (QT*)smem;
   int32_t* stage = (int32_t*)(qb + row_smem) + warp * 32 * C;
 
-  const QT* src = q + b * row_len;
-  if (((uintptr_t)src & 3) == 0) {
-    const int whole = row_len / PER_WORD * PER_WORD;
-    for (int e = tid * PER_WORD; e < whole; e += ROWS_THREADS * PER_WORD)
-      copy4_async(qb + skewed<QT>(e), src + e);
-    if (tid == 0 && whole < row_len) qb[skewed<QT>(whole)] = src[whole];
-    copy_async_wait();
-  } else {
-    for (int e = tid; e < row_len; e += ROWS_THREADS)
-      qb[skewed<QT>(e)] = src[e];
-  }
+  stage_row(src, qb, b, row_len, tid);
   if (tid == 0) range = mesh_range(vmin[b], vmax[b]);
   __syncthreads();
   const Range r = range;
-
   // a mesh's symbol rows start 16-byte aligned when T * C * 4 divides so
   const bool vec = (T * C) % 4 == 0 && ((uintptr_t)out & 15) == 0;
   for (int t0 = warp * 32; t0 < T; t0 += ROWS_THREADS) {
@@ -198,9 +275,9 @@ __global__ void __launch_bounds__(ROWS_THREADS) predict_rows_kernel(
   }
 }
 
-template <typename QT>
+template <typename Src>
 __global__ void predict_gather_kernel(
-    const QT* __restrict__ q, const int32_t* __restrict__ order,
+    Src src, const int32_t* __restrict__ order,
     const int32_t* __restrict__ nxt, const int32_t* __restrict__ prv,
     const int32_t* __restrict__ opp, const int32_t* __restrict__ fb,
     const uint8_t* __restrict__ can_para, const uint8_t* __restrict__ has_fb,
@@ -210,7 +287,7 @@ __global__ void predict_gather_kernel(
   if (row >= B * T) return;
   const int64_t b = row / T;
   const int64_t t = row - b * T;
-  const QT* qb = q + b * V * C;
+  const int64_t row_len = V * C;
 
   const Range r = mesh_range(vmin[b], vmax[b]);
 
@@ -227,28 +304,30 @@ __global__ void predict_gather_kernel(
   for (int c = 0; c < C; ++c) {
     int32_t pred = 0;
     if (para) {
-      pred = (int32_t)qb[in + c] + (int32_t)qb[ip + c] - (int32_t)qb[id + c];
+      pred = src.at(b, row_len, in + c) + src.at(b, row_len, ip + c)
+             - src.at(b, row_len, id + c);
     } else if (use_fb) {
-      pred = (int32_t)qb[iff + c];
+      pred = src.at(b, row_len, iff + c);
     }
-    o[c] = residual_symbol((int32_t)qb[io + c], pred, r);
+    o[c] = residual_symbol(src.at(b, row_len, io + c), pred, r);
   }
 }
 
-template <typename QT, int C>
-int launch_rows(const void* q, const void* const* gathers, const void* vmin,
+template <typename Src, int C>
+int launch_rows(Src src, const void* const* gathers, const void* vmin,
                 const void* vmax, void* out, int64_t B, int64_t V, int64_t T,
                 void* stream) {
+  using QT = typename Src::Smem;
   const int64_t smem = (int64_t)skewed_row<QT>((int)(V * C)) * sizeof(QT)
                        + (int64_t)ROWS_WARPS * 32 * C * 4;
-  auto kernel = predict_rows_kernel<QT, C>;
+  auto kernel = predict_rows_kernel<Src, C>;
   if (smem > 48 * 1024) {  // past the default limit of dynamic shared memory
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   kernel<<<(unsigned)B, ROWS_THREADS, (size_t)smem, (cudaStream_t)stream>>>(
-      (const QT*)q, (const int32_t*)gathers[0], (const int32_t*)gathers[1],
+      src, (const int32_t*)gathers[0], (const int32_t*)gathers[1],
       (const int32_t*)gathers[2], (const int32_t*)gathers[3],
       (const int32_t*)gathers[4], (const uint8_t*)gathers[5],
       (const uint8_t*)gathers[6], (const int32_t*)vmin, (const int32_t*)vmax,
@@ -259,63 +338,71 @@ int launch_rows(const void* q, const void* const* gathers, const void* vmin,
 // rows: 1 for predict_rows_kernel, where the caller found that the mesh's
 // skewed q row fits shared memory and C is 1 to 4; 0 for
 // predict_gather_kernel.
-template <typename QT>
-int launch(const void* q, const void* order, const void* nxt,
-           const void* prv, const void* opp, const void* fb,
-           const void* can_para, const void* has_fb, const void* vmin,
-           const void* vmax, void* out, int64_t B, int64_t V, int64_t T,
-           int32_t C, int32_t rows, void* stream) {
+template <typename Src>
+int launch(Src src, const void* order, const void* nxt, const void* prv,
+           const void* opp, const void* fb, const void* can_para,
+           const void* has_fb, const void* vmin, const void* vmax, void* out,
+           int64_t B, int64_t V, int64_t T, int32_t C, int32_t rows,
+           void* stream) {
   if (B * T == 0) return 0;
   if (rows) {
     const void* gathers[7] = {order, nxt, prv, opp, fb, can_para, has_fb};
     switch (C) {
       case 1:
-        return launch_rows<QT, 1>(q, gathers, vmin, vmax, out, B, V, T,
-                                  stream);
+        return launch_rows<Src, 1>(src, gathers, vmin, vmax, out, B, V, T,
+                                   stream);
       case 2:
-        return launch_rows<QT, 2>(q, gathers, vmin, vmax, out, B, V, T,
-                                  stream);
+        return launch_rows<Src, 2>(src, gathers, vmin, vmax, out, B, V, T,
+                                   stream);
       case 3:
-        return launch_rows<QT, 3>(q, gathers, vmin, vmax, out, B, V, T,
-                                  stream);
+        return launch_rows<Src, 3>(src, gathers, vmin, vmax, out, B, V, T,
+                                   stream);
       case 4:
-        return launch_rows<QT, 4>(q, gathers, vmin, vmax, out, B, V, T,
-                                  stream);
+        return launch_rows<Src, 4>(src, gathers, vmin, vmax, out, B, V, T,
+                                   stream);
       default:
         return (int)cudaErrorInvalidValue;
     }
   }
   const int threads = 256;
   const int64_t blocks = (B * T + threads - 1) / threads;
-  predict_gather_kernel<QT><<<(unsigned)blocks, threads, 0,
-                              (cudaStream_t)stream>>>(
-      (const QT*)q, (const int32_t*)order, (const int32_t*)nxt,
-      (const int32_t*)prv, (const int32_t*)opp, (const int32_t*)fb,
-      (const uint8_t*)can_para, (const uint8_t*)has_fb,
-      (const int32_t*)vmin, (const int32_t*)vmax, (int32_t*)out, B, V, T, C);
+  predict_gather_kernel<Src><<<(unsigned)blocks, threads, 0,
+                               (cudaStream_t)stream>>>(
+      src, (const int32_t*)order, (const int32_t*)nxt, (const int32_t*)prv,
+      (const int32_t*)opp, (const int32_t*)fb, (const uint8_t*)can_para,
+      (const uint8_t*)has_fb, (const int32_t*)vmin, (const int32_t*)vmax,
+      (int32_t*)out, B, V, T, C);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int tdr_predict_residual_u16(
-    const void* q, const void* order, const void* nxt, const void* prv,
-    const void* opp, const void* fb, const void* can_para,
-    const void* has_fb, const void* vmin, const void* vmax, void* out,
-    int64_t B, int64_t V, int64_t T, int32_t C, int32_t rows,
-    void* stream) {
-  return launch<uint16_t>(q, order, nxt, prv, opp, fb, can_para, has_fb,
-                          vmin, vmax, out, B, V, T, C, rows, stream);
-}
+#define TDR_PREDICT_PLAIN(NAME, QT)                                          \
+  extern "C" int NAME(const void* q, const void* order, const void* nxt,     \
+                      const void* prv, const void* opp, const void* fb,      \
+                      const void* can_para, const void* has_fb,              \
+                      const void* vmin, const void* vmax, void* out,         \
+                      int64_t B, int64_t V, int64_t T, int32_t C,            \
+                      int32_t rows, void* stream) {                          \
+    return launch(Plain<QT>{(const QT*)q}, order, nxt, prv, opp, fb,         \
+                  can_para, has_fb, vmin, vmax, out, B, V, T, C, rows,       \
+                  stream);                                                   \
+  }
 
-extern "C" int tdr_predict_residual_i32(
-    const void* q, const void* order, const void* nxt, const void* prv,
-    const void* opp, const void* fb, const void* can_para,
+TDR_PREDICT_PLAIN(tdr_predict_residual_u8, uint8_t)
+TDR_PREDICT_PLAIN(tdr_predict_residual_u16, uint16_t)
+TDR_PREDICT_PLAIN(tdr_predict_residual_i32, int32_t)
+
+// the 12-bit pack: lo (B, V * C) and hb (B, ceil(V * C / 2)) bytes
+extern "C" int tdr_predict_residual_p12(
+    const void* lo, const void* hb, const void* order, const void* nxt,
+    const void* prv, const void* opp, const void* fb, const void* can_para,
     const void* has_fb, const void* vmin, const void* vmax, void* out,
     int64_t B, int64_t V, int64_t T, int32_t C, int32_t rows,
     void* stream) {
-  return launch<int32_t>(q, order, nxt, prv, opp, fb, can_para, has_fb,
-                         vmin, vmax, out, B, V, T, C, rows, stream);
+  return launch(Pack12{(const uint8_t*)lo, (const uint8_t*)hb}, order, nxt,
+                prv, opp, fb, can_para, has_fb, vmin, vmax, out, B, V, T, C,
+                rows, stream);
 }
 
 extern "C" const char* tdr_error_string(int code) {

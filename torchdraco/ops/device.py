@@ -18,6 +18,11 @@ launches its kernel or raises. Each counts its launches in ``n_launches``.
 Symbols are int32 here (the JAX package returns the same values as uint32;
 torch has no arithmetic on uint32).
 
+K1 takes q in the layout it was uploaded in (``parallel/batch.py``
+``upload_layout``): a uint8, uint16 or int32 tensor, or the 12-bit pack as
+a pair (lo, hb) (``torchdraco.native.pack12``); it reads the narrow
+layouts directly, and its plain version widens them first (``widen``).
+
 Every float step is a separate eager ``/``, ``*`` or ``+``, each correctly
 rounded on both devices (never ``torch.compile``, ``addcmul`` or another
 fused form: a multiply-add rounds once and moves values on .5 boundaries,
@@ -133,10 +138,30 @@ def encode_step_from_q(q_in: torch.Tensor, gathers: dict, bits: int = 11,
     return {"symbols": corr, "counts": counts, "vmin": vmin, "vmax": vmax}
 
 
+def upload_layout_of(q) -> str:
+    """The layout of uploaded quantized values: ``"pack12"`` for a (lo, hb)
+    pair, else ``"u8"``, ``"u16"`` or ``"i32"`` by the tensor's type."""
+    if isinstance(q, (tuple, list)):
+        return "pack12"
+    layout = _LAYOUTS.get(q.dtype)
+    if layout is None:
+        raise ValueError(f"q must be uint8, uint16 or int32, or a (lo, hb) "
+                         f"pair of uint8, got {q.dtype}")
+    return layout
+
+
+def widen(q) -> torch.Tensor:
+    """int32 values of an upload in any layout, on its device: the 12-bit
+    pack through ``unpack12_kernel``, a tensor by a cast."""
+    if isinstance(q, (tuple, list)):
+        return unpack12_kernel(*q)
+    return q.to(torch.int32)
+
+
 def predict_residual_ref(q, gathers, vmin, vmax) -> torch.Tensor:
     """Plain version of K1: (B, T, C) int32 symbols against the given
-    per-mesh residual range."""
-    q32 = q.to(torch.int32)
+    per-mesh residual range; q in any upload layout (``widen``)."""
+    q32 = widen(q)
     preds = parallelogram_predict_kernel(
         q32, gathers["next"], gathers["prev"], gathers["opp"],
         gathers["fallback"], gathers["can_para"], gathers["has_fallback"])
@@ -144,6 +169,11 @@ def predict_residual_ref(q, gathers, vmin, vmax) -> torch.Tensor:
                            vmax)
 
 
+_LAYOUTS = {torch.uint8: "u8", torch.uint16: "u16", torch.int32: "i32"}
+_K1_ENTRY = {"u8": "tdr_predict_residual_u8",
+             "pack12": "tdr_predict_residual_p12",
+             "u16": "tdr_predict_residual_u16",
+             "i32": "tdr_predict_residual_i32"}
 _GATHER_INDEX = ("order", "next", "prev", "opp", "fallback")
 _GATHER_MASK = ("can_para", "has_fallback")
 
@@ -180,17 +210,25 @@ def predict_fits_smem(V: int, C: int, itemsize: int) -> bool:
     return row + 8 * 32 * C * 4 <= PREDICT_SMEM_MAX_BYTES
 
 
-def _check_predict_inputs(q, gathers, vmin, vmax) -> None:
-    """Raise on what K1 does not take. The messages are built only on a
-    failure: the launch path runs in tens of microseconds."""
+def _check_predict_inputs(q, hb, gathers, vmin, vmax) -> None:
+    """Raise on what K1 does not take; ``hb`` is the 12-bit pack's nibble
+    rows beside its low bytes ``q``, else None. The messages are built
+    only on a failure: the launch path runs in tens of microseconds."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     _require(q.dim() == 3 and q.is_contiguous(), "q must be (B, V, C) "
              "contiguous")
-    if q.dtype not in (torch.uint16, torch.int32):
-        raise ValueError(f"q must be uint16 or int32, got {q.dtype}")
     B = q.shape[0]
+    if hb is not None:
+        n = q.shape[1] * q.shape[2]
+        if not (q.dtype == torch.uint8 and hb.dtype == torch.uint8
+                and hb.device == dev and hb.is_contiguous()
+                and hb.shape == (B, (n + 1) // 2)):
+            raise ValueError(f"the 12-bit pack must be lo (B, V, C) and hb "
+                             f"({B}, {(n + 1) // 2}) uint8 on {dev}")
+    elif q.dtype not in _LAYOUTS:
+        raise ValueError(f"q must be uint8, uint16 or int32, got {q.dtype}")
     T = gathers["order"].numel()
     for keys, dtype in ((_GATHER_INDEX, torch.int32),
                         (_GATHER_MASK, torch.bool)):
@@ -206,34 +244,45 @@ def _check_predict_inputs(q, gathers, vmin, vmax) -> None:
             raise ValueError(f"{name} must be ({B},) int32 on {dev}")
 
 
-def predict_residual(q: torch.Tensor, gathers: dict, vmin: torch.Tensor,
+def predict_residual(q, gathers: dict, vmin: torch.Tensor,
                      vmax: torch.Tensor) -> torch.Tensor:
     """K1: (B, T, C) int32 zigzagged residual symbols of host-quantized
-    q (B, V, C) uint16 or int32, against the host's per-mesh range
-    vmin/vmax (B,) int32. Gather indices must lie in [0, V). On CUDA the
-    kernel is chosen from the shape alone (``predict_fits_smem``)."""
-    if q.device.type == "cpu":
+    q (B, V, C), against the host's per-mesh range vmin/vmax (B,) int32.
+    q is uploaded in any layout: a uint8, uint16 or int32 tensor, or the
+    12-bit pack (lo (B, V, C) uint8, hb (B, ceil(V*C/2)) uint8), which
+    the kernel unpacks as it reads. Gather indices must lie in [0, V). On
+    CUDA the kernel is chosen from the shape alone (``predict_fits_smem``,
+    with the 2-byte elements of the pack's staged row). Counts its
+    launches in ``n_launches`` and, by layout, ``n_launches_by_layout``."""
+    layout = upload_layout_of(q)
+    lo, hb = q if layout == "pack12" else (q, None)
+    if lo.device.type == "cpu":
         return predict_residual_ref(q, gathers, vmin, vmax)
-    _check_predict_inputs(q, gathers, vmin, vmax)
-    B, V, C = q.shape
+    _check_predict_inputs(lo, hb, gathers, vmin, vmax)
+    B, V, C = lo.shape
     T = gathers["order"].numel()
-    out = torch.empty((B, T, C), dtype=torch.int32, device=q.device)
+    out = torch.empty((B, T, C), dtype=torch.int32, device=lo.device)
     if B * T * C == 0:
         return out
     lib = _build.load()
-    fn = (lib.tdr_predict_residual_u16 if q.dtype == torch.uint16
-          else lib.tdr_predict_residual_i32)
-    with _launch_on(q) as stream:
-        rc = fn(q.data_ptr(), *(gathers[k].data_ptr() for k in _GATHER_INDEX),
+    fn = getattr(lib, _K1_ENTRY[layout])
+    parts = (lo,) if hb is None else (lo, hb)
+    staged = 2 if hb is not None else lo.element_size()
+    with _launch_on(lo) as stream:
+        rc = fn(*(t.data_ptr() for t in parts),
+                *(gathers[k].data_ptr() for k in _GATHER_INDEX),
                 *(gathers[k].data_ptr() for k in _GATHER_MASK),
                 vmin.data_ptr(), vmax.data_ptr(), out.data_ptr(), B, V, T, C,
-                int(predict_fits_smem(V, C, q.element_size())), stream)
+                int(predict_fits_smem(V, C, staged)), stream)
         _build.check(rc, "predict_residual")
     predict_residual.n_launches += 1
+    predict_residual.n_launches_by_layout[layout] += 1
     return out
 
 
 predict_residual.n_launches = 0
+predict_residual.n_launches_by_layout = dict.fromkeys(
+    ("u8", "pack12", "u16", "i32"), 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -295,9 +344,11 @@ def encode_step_from_q_cuda(q: torch.Tensor, gathers: dict,
                             vmin: torch.Tensor, vmax: torch.Tensor,
                             bits: int = 11, hist_bins: int | None = None):
     """The fused step through K1 and K2, the counterpart of
-    ``encode_step_pallas_from_q``: returns (symbols (B, T, C) int32,
-    counts (B, hist_bins) int32). vmin/vmax come from the host quantize.
-    There is no depth cap: the kernels gather, they do not multiply int8
+    ``encode_step_pallas_from_q`` (and, with q the 12-bit pack (lo, hb),
+    of ``_jit_step_pallas_p12``): returns (symbols (B, T, C) int32,
+    counts (B, hist_bins) int32). q is in any upload layout
+    (``predict_residual``); vmin/vmax come from the host quantize. There
+    is no depth cap: the kernels gather, they do not multiply int8
     planes."""
     if hist_bins is None:
         hist_bins = default_hist_bins(bits)
@@ -481,6 +532,6 @@ def unpack12_kernel(lo: torch.Tensor, hb: torch.Tensor) -> torch.Tensor:
     the low nibble)."""
     B = lo.shape[0]
     n = lo[0].numel() if B else 0
-    hi = torch.stack([hb & 0xF, hb >> 4], dim=-1).reshape(B, -1)
+    hi = torch.stack([hb & 0xF, hb >> 4], dim=-1).reshape(B, 2 * hb.shape[-1])
     hi = hi[:, :n].reshape(lo.shape)
     return lo.to(torch.int32) | (hi.to(torch.int32) << 8)

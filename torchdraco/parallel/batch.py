@@ -4,8 +4,11 @@ mesh on its own, and the corpus driver over files on disk.
 Counterpart of ``tpudraco/parallel/batch.py``. The batch path
 (``encode_meshes_device``): meshes are grouped by topology; per group the
 host runs the connectivity pass once and quantizes every mesh (the
-canonical formula, C++), the quantized values go to the device as uint16,
-the fused step (K1, K2) and the multi-lane rANS coder (K3) run there for
+canonical formula, C++), the quantized values go to the device in the
+narrowest layout the depth allows (``upload_layout``: uint8 at up to 8
+bits, the 12-bit pack at up to 12, uint16 at up to 16, int32 beyond), the
+fused step (K1, which reads every layout, K2) and the multi-lane rANS
+coder (K3) run there for
 the position attribute (or, with ``entropy="host"``, the symbols come back
 and the host's C++ coder codes each mesh), the NORMAL and TEX_COORD
 attributes run their chains (ops/normals.py, ops/texcoords.py) on the same
@@ -57,7 +60,7 @@ from ..ops.gathers import build_parallelogram_gathers
 from ..ops.device import (
     default_hist_bins, encode_step_chunk, encode_step_from_q_cuda,
     encode_step_stream_sharded, minmax_chunk_kernel,
-    quantized_range_chunk_kernel,
+    quantized_range_chunk_kernel, widen,
 )
 from ..ops.normals import (
     RING_BYTES_PER_SLOT, collect_normal_rings, normal_encode_chain_sharded,
@@ -72,6 +75,12 @@ from ..shared.prediction import (
 )
 from ..shared.sequencer import compute_sequence
 from ..wire.byte_io import ByteWriter
+
+# The narrow upload layouts of the quantized positions and UVs
+# (``upload_layout``); TORCHDRACO_PACKED_UPLOAD=0 turns them off, so that
+# uint16 crosses the link at every depth up to 16 bits: the same bytes,
+# tpudraco's TPUDRACO_PACKED_UPLOAD twin.
+PACKED_UPLOAD = os.environ.get("TORCHDRACO_PACKED_UPLOAD", "1") != "0"
 
 
 class PreparedTopology:
@@ -347,38 +356,78 @@ def _host_quantize(batch: np.ndarray, bits: int):
             vmin, vmax)
 
 
+def upload_layout(bits: int) -> str:
+    """The layout host-quantized values of ``bits`` bits cross the link in
+    (the rule of ``tpudraco/parallel/batch.py`` ``device_encode_group``):
+    ``"u8"`` at up to 8 bits, ``"pack12"`` (``native.pack12``: a low byte
+    a value and a nibble a value, paired within a mesh's row) at up to 12,
+    ``"u16"`` at up to 16 and ``"i32"`` beyond; with ``PACKED_UPLOAD``
+    off, ``"u16"`` up to 16 bits."""
+    if bits > 16:
+        return "i32"
+    if PACKED_UPLOAD and bits <= 8:
+        return "u8"
+    if PACKED_UPLOAD and bits <= 12:
+        return "pack12"
+    return "u16"
+
+
+def _upload(q: np.ndarray, bits: int, axis: list) -> tuple[list, int]:
+    """Host-quantized values ``q`` (B, ...) (uint16 up to 16 bits, int32
+    past them: ``_host_quantize``) in the layout of ``bits``
+    (``upload_layout``), cut along the batch axis (``shard_rows``; the
+    12-bit pack's lo (B, ...) and hb (B, ceil(n/2)) cut on their rows
+    alike) and piece i moved to ``axis[i]``. Returns (one upload a shard:
+    a tensor, or the pack's (lo, hb) pair; the bytes sent)."""
+    layout = upload_layout(bits)
+    if layout == "u8":
+        parts = (q.astype(np.uint8),)
+    elif layout == "pack12":
+        parts = native.pack12(q)
+    else:
+        parts = (q,)
+    shards = [shard_rows(p, axis) for p in parts]
+    return (list(zip(*shards)) if layout == "pack12" else shards[0],
+            sum(p.nbytes for p in parts))
+
+
 def device_encode_group(positions_batch: np.ndarray, topo: PreparedTopology,
                         pos_att, bits: int = 11, device=None,
                         mesh_axis=None) -> dict:
     """The fused step for a (B, V, C) float32 batch sharing ``topo``:
-    quantize on the host (C++, the canonical formula), upload uint16
-    (int32 past 16 bits), run K1 and K2 on ``device`` (None: the card;
-    ``"cpu"`` runs their plain twins) or, with ``mesh_axis`` (a shard
-    axis, ``resolve_axis``; ``device``, if given, its first device), split
-    over its devices as ``_jit_step_sharded_q`` splits the batch: shard i
-    uploads its rows (``shard_bounds``) and runs K1 and K2 there against
-    that device's gathers. Without an axis the one device is the axis.
+    quantize on the host (C++, the canonical formula), upload in the
+    layout of ``bits`` (``upload_layout``: uint8, the 12-bit pack, uint16
+    or int32), run K1, which reads that layout, and K2 on ``device``
+    (None: the card; ``"cpu"`` runs their plain twins) or, with
+    ``mesh_axis`` (a shard axis, ``resolve_axis``; ``device``, if given,
+    its first device), split over its devices as ``_jit_step_sharded_q``
+    and ``_jit_step_sharded_p12`` split the batch: shard i uploads its
+    rows (``shard_bounds``) and runs K1 and K2 there against that
+    device's gathers. Without an axis the one device is the axis.
 
     Returns ``symbols`` (B_i, T, C) int32, ``counts`` and the values as
-    uploaded (``q_dev``) as lists, one tensor a shard of the axis on its
-    device, in axis order (empty where the batch has fewer meshes than
-    the axis has shards), and on the host, whole, vmin/vmax, mins,
-    delta_max and the quantized values (``q``)."""
+    uploaded (``q_dev``: a uint8, uint16 or int32 tensor, or the pack's
+    (lo, hb) pair) as lists, one entry a shard of the axis on its device,
+    in axis order (empty where the batch has fewer meshes than the axis
+    has shards); ``h2d_bytes``, the bytes of ``q_dev``; and on the host,
+    whole, vmin/vmax, mins, delta_max and the quantized values (``q``)."""
     axis = axis_for(device, mesh_axis)
     B, V, C = positions_batch.shape
     q_np, mins, delta_max, vmin, vmax = _host_quantize(positions_batch, bits)
     vmin = np.asarray(vmin, np.int32)
     vmax = np.asarray(vmax, np.int32)
+    q_up, h2d_bytes = _upload(q_np, bits, axis)
     shards = {"symbols": [], "counts": [], "q_dev": []}
-    for dev, q_dev, lo, hi in zip(axis, *(shard_rows(x, axis)
-                                          for x in (q_np, vmin, vmax))):
+    for dev, q_dev, lo, hi in zip(axis, q_up, *(shard_rows(x, axis)
+                                                for x in (vmin, vmax))):
         symbols, counts = encode_step_from_q_cuda(
             q_dev, _device_gathers(topo, pos_att, dev, V), lo, hi,
             bits=bits)
         for k, v in zip(shards, (symbols, counts, q_dev)):
             shards[k].append(v)
     return {"vmin": vmin, "vmax": vmax, "mins": mins,
-            "delta_max": delta_max, "q": q_np, **shards}
+            "delta_max": delta_max, "q": q_np, "h2d_bytes": h2d_bytes,
+            **shards}
 
 
 def _attribute_eligible(meshes, idxs, att_idx, pos_id, n_comp):
@@ -418,9 +467,13 @@ def _device_extra_attribute_entries(meshes, idxs, topo: PreparedTopology,
     group through the sharded chains, over ``mesh_axis`` or else the one
     device ``device`` (None: the card), each device holding the tables
     of the topology. ``q_pos`` is the chunk's quantized positions as
-    already uploaded (``device_encode_group``'s ``q_dev``, one tensor a
-    shard); without it they are quantized and uploaded here, once, and
-    feed every chain. Returns
+    already uploaded (``device_encode_group``'s ``q_dev``, one upload a
+    shard, in any layout); without it they are quantized and uploaded
+    here, once, in the layout of ``bits`` (``upload_layout``). Either way
+    each shard's positions are widened to int32 once on its device and
+    feed every chain; the UVs cross the link in the layout of
+    ``uv_bits`` and are widened there too (``_host_quantized_upload``'s
+    counterpart). Returns
     {position-in-idxs: {att_idx: {"payload", "xform_meta"}}}; ineligible
     attributes (or individual "risky"/degenerate meshes) are simply
     absent and take the host path in the assembly. An error inside a chain
@@ -474,7 +527,10 @@ def _device_extra_attribute_entries(meshes, idxs, topo: PreparedTopology,
     if q_pos is None:
         pos_idx = next(j for j, a in enumerate(mesh0.attributes)
                        if a is pos_att0)
-        q_pos = shard_rows(_host_quantize(stacked(pos_idx), bits)[0], axis)
+        q_pos = _upload(_host_quantize(stacked(pos_idx), bits)[0], bits,
+                        axis)[0]
+    # the chains take int32 values: each shard's upload widened on its device
+    q_pos = [widen(q) for q in q_pos]
     uo_pos = replicate(pos_att0.unique_indices().astype(np.int64), axis)
     n = len(idxs)
 
@@ -499,7 +555,8 @@ def _device_extra_attribute_entries(meshes, idxs, topo: PreparedTopology,
                 "payload": _direct_coded_payload(syms[k]),
                 "xform_meta": bytes(xw.getvalue())}
     for ui in uv_idxs:
-        q_uv = _host_quantize(uv_batches[ui], uv_bits)[0]
+        q_uv = [widen(q) for q in _upload(
+            _host_quantize(uv_batches[ui], uv_bits)[0], uv_bits, axis)[0]]
         uo_uv = mesh0.attributes[ui].unique_indices()
         g = [topo.dev_uv_gathers_for(ui, pos_att0.num_points, d)
              for d in axis]
@@ -556,7 +613,9 @@ class BatchEncoder:
     (``position_s``: the quantize, upload, fused step and rANS coder of the
     position attribute; ``chains_s``: the NORMAL and TEX_COORD chains with
     their readback and host payloads; the chunked route's ``pass1_s`` ...
-    ``pass3_s``).
+    ``pass3_s``) and, for ``encode_meshes_device``, ``h2d_mb``: the
+    megabytes of quantized positions uploaded, in their layout
+    (``upload_layout``).
 
     ``use_device``: the plane of ``encode_corpus``: True (the default) the
     device plane, False the host plane, ``"auto"`` the router
@@ -774,7 +833,7 @@ class BatchEncoder:
 
         t = self.timings = dict.fromkeys(
             ("signatures_s", "topology_s", "position_s", "chains_s",
-             "assembly_s"), 0.0)
+             "assembly_s", "h2d_mb"), 0.0)
         clock = time.perf_counter
         t0 = clock()
         groups: dict[str, list[int]] = {}
@@ -864,6 +923,7 @@ class BatchEncoder:
                                               precomputed=pre)
             t["position_s"] += t1 - t0
             t["chains_s"] += t2 - t1
+            t["h2d_mb"] += dev_c["h2d_bytes"] / 1e6
             t["assembly_s"] += clock() - t2
         self._dev_cache_touch(sig, topo)
 
@@ -926,9 +986,9 @@ class BatchEncoder:
                            device=None) -> bytes:
         """One mesh with its positions and gathers resident on ``device``
         (None: the encoder's ``device``, else the card; ``"cpu"`` runs
-        the plain twins): the host C++ quantize, one uint16 upload, K1 and
-        K2 at B = 1, the NORMAL and TEX_COORD chains on the same uploaded
-        positions, one readback of the symbols (uint16 where ``bits + 1 <=
+        the plain twins): the host C++ quantize, one upload in the layout
+        of the depth (``upload_layout``), K1 and K2 at B = 1, the NORMAL and
+        TEX_COORD chains on the same uploaded positions, one readback of the symbols (uint16 where ``bits + 1 <=
         16``), and the host's C++ rANS coder and assembly. The position
         symbols form one rANS
         stream, which one lane of K3 would code at one dependent step a
