@@ -47,7 +47,12 @@ positions only and with normals and UVs, every blob equal between the
 two (and to encode(): all positions-only ones, 8 textured ones a depth);
 phase 14's axis at -qp 11 both ways; and
 encode_mesh_device on phase 12's grid at -qp 8 and 11. (The main path
-itself, at -qp 11, uploads the 12-bit pack.) That the port's host codec
+itself, at -qp 11, uploads the 12-bit pack.) Then the bench (phase 16):
+python -m torchdraco.bench in a process of its own at 64 meshes for each
+of corpus, e2e, step, decode and decode-corpus and with --breakdown, and
+its bench_huge on a 256 x 256 grid in this process, every line checked
+for its metric, a positive value, this card and the card's idle share,
+and K1, K2, K3 and D1 launched by them. That the port's host codec
 equals tpudraco's is what the CPU tests show
 (tests/test_torch_host_codec.py, tests/test_torch_corpus.py); this script
 imports nothing of it.
@@ -64,7 +69,8 @@ function; the lines before that hold phase 13's walls, sweep and knobs
 (``corpus``), the three chains' device times, launches, peak memory and
 bounds and the end-to-end times of phases 10-11 (``chains``), phase
 12's (``single_mesh``) and phase 14's walls, launches and checks
-(``sharded``) and phase 15's (``narrow``); each kernel's entry also
+(``sharded``) and phase 15's (``narrow``), then phase 16's bench lines,
+as the bench prints them; each kernel's entry also
 counts its launches on the corpus (``launches_corpus``) and over the shard
 axis of 4 (``launches_sharded``). K1 has an entry a layout:
 ``predict_residual`` (uint16, launched on the batch path at -qp 15),
@@ -127,6 +133,11 @@ ROUTER_KNOBS = ("MIN_DEVICE_GROUP", "PROBE_SKIP_S", "PROBE_CHUNK")
 # a knob the sweep puts beyond this factor of the code's value is flagged
 # as drifted on the corpus line
 KNOB_DRIFT = 2.0
+# phase 16: torchdraco.bench in its own process at BENCH_BATCH meshes, once
+# a metric of BENCH_METRICS and once with --breakdown, each within
+# BENCH_TIMEOUT_S, and bench_huge in this process on a BENCH_HUGE_N grid
+BENCH_BATCH, BENCH_HUGE_N, BENCH_TIMEOUT_S = 64, 256, 300
+BENCH_METRICS = ("corpus", "e2e", "step", "decode", "decode-corpus")
 OPS = {"predict_residual": 12, "histogram": 2, "rans_words_scan": 30,
        "rans_scan_dense": 30, "rans_decode_lanes": 30}
 
@@ -1245,6 +1256,10 @@ def main() -> int:
                            reuse12, main_layouts)
     errs.update({name: e["max_abs_err"] for name, e in k15.items()})
 
+    # ---- phase 16: the bench, python -m torchdraco.bench -----------------
+    torch.cuda.empty_cache()
+    bench_lines = _phase16(torch, dev, wall_s)
+
     # the launches of phase 13's counted path: the device plane of
     # encode_corpus over the mixed corpus, and its decode_corpus
     corpus_launches = {**corpus["encode"]["launches_manual"],
@@ -1308,12 +1323,14 @@ def main() -> int:
                                                "kernels": kernels}),
           file=sys.stderr)
     report["run_s"] = time.perf_counter() - t_start
-    print(f"chip_smoke: phases 1-15 in {report['run_s']:.1f} s")
+    print(f"chip_smoke: phases 1-16 in {report['run_s']:.1f} s")
     print(json.dumps({"single_mesh": single}))
     print(json.dumps({"chains": chains}))
     print(json.dumps({"corpus": corpus}))
     print(json.dumps({"sharded": sharded}))
     print(json.dumps({"narrow": narrow}))
+    for line in bench_lines:
+        print(json.dumps(line))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2681,6 +2698,62 @@ def _write_glb_corpus(torchdraco, Scene, save_scene_glb, src) -> list:
     with open(os.path.join(src, "broken.glb"), "wb") as fh:
         fh.write(b"glTF\x02\x00\x00\x00 not a scene")
     return paths
+
+
+def _phase16(torch, dev, wall_s) -> list:
+    """The bench: ``python -m torchdraco.bench`` in a process of its own at
+    BENCH_BATCH meshes, once for each of BENCH_METRICS and once with
+    ``--breakdown``, each to exit 0 with one line; then
+    ``bench.bench_huge`` on a BENCH_HUGE_N grid in this process (phase 12
+    runs the 1024 x 1024 one). Every line must name its metric, a
+    positive value, this card and the card's idle share of its traced
+    call, and the lines together must launch K1, K2, K3 and D1. Returns
+    the lines."""
+    from torchdraco import bench
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, TORCHDRACO_BENCH_BATCH=str(BENCH_BATCH))
+    lines, walls = [], {}
+    for args in ([["--metric", m] for m in BENCH_METRICS]
+                 + [["--breakdown"]]):
+        t1 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torchdraco.bench", *args], cwd=ROOT,
+            env=env, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+        walls[" ".join(args)] = time.perf_counter() - t1
+        _check(proc.returncode == 0, f"16: torchdraco.bench {' '.join(args)}"
+               f" exited {proc.returncode}: {proc.stderr[-2000:]}")
+        got = [json.loads(ln) for ln in proc.stdout.splitlines()
+               if ln.startswith("{")]
+        _check(len(got) == 1, f"16: torchdraco.bench {' '.join(args)} "
+               f"printed {len(got)} lines: {proc.stdout[-2000:]}")
+        lines += got
+    huge, walls[f"bench_huge(n={BENCH_HUGE_N})"] = wall_s(
+        lambda: bench.bench_huge(dev, n=BENCH_HUGE_N))
+    lines.append(huge)
+    card = torch.cuda.get_device_name(0)
+    for line in lines:
+        _check(line.get("metric") and line.get("value", 0) > 0
+               and not line.get("rehearsal")
+               and line["device"].get("name") == card
+               and line["device"].get("power_limit_w")
+               and line.get("device_idle_share") is not None,
+               f"16: a bench line lacks its metric, value, card or idle "
+               f"share: {line}")
+    launched = {k: sum(line["launches"][k] for line in lines)
+                for k in lines[0]["launches"]}
+    _check(all(launched[k] > 0 for k in (
+        "predict_residual", "histogram", "rans_words_scan",
+        "rans_decode_lanes")), f"16: the bench never launched a kernel of "
+        f"its paths: {launched}")
+    print(f"phase 16: torchdraco.bench at {BENCH_BATCH} meshes, "
+          + ", ".join(f"{line['metric']} {line['value']} {line['unit']} "
+                      f"(idle {line['device_idle_share']:.4f})"
+                      for line in lines)
+          + f"; launches {launched}; walls "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+          + f"; {time.perf_counter() - t0:.1f} s")
+    return lines
 
 
 def _host_rans_encode(coder, dist, lane) -> bytes:

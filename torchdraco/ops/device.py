@@ -414,7 +414,9 @@ def _div(num: torch.Tensor, den) -> torch.Tensor:
 
 
 def _f32(x: float, device) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    """A float32 scalar on ``device``, filled there: no copy from the host,
+    which on the card would wait for the work queued before it."""
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def _quantize_normalized(diff: torch.Tensor, delta_max: torch.Tensor,
