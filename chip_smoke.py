@@ -52,7 +52,17 @@ python -m torchdraco.bench in a process of its own at 64 meshes for each
 of corpus, e2e, step, decode and decode-corpus and with --breakdown, and
 its bench_huge on a 256 x 256 grid in this process, every line checked
 for its metric, a positive value, this card and the card's idle share,
-and K1, K2, K3 and D1 launched by them. That the port's host codec
+and K1, K2, K3 and D1 launched by them. Then the main path at real mesh
+sizes and depths (phase 17): 32 grids of 256 x 256 and 8 of 512 x 512
+through encode_meshes_device at -qp 8, 11, 14, 15 and 16, every blob
+equal to the host plane and two a depth to encode(), K1's tiled kernel
+launched once a call and its direct gather never, K2's wide form at 15
+and 16; the tiled K1 in each layout against its plain version, timed
+beside the direct gather and over three tile sizes, and at the batch's
+own shape beside the rows kernel; K2's wide form on the path's symbols
+against its plain version, timed beside torch.bincount; and the -qp 15
+batch's position_s split by
+stage, with a host profile and a device trace. That the port's host codec
 equals tpudraco's is what the CPU tests show
 (tests/test_torch_host_codec.py, tests/test_torch_corpus.py); this script
 imports nothing of it.
@@ -69,13 +79,16 @@ function; the lines before that hold phase 13's walls, sweep and knobs
 (``corpus``), the three chains' device times, launches, peak memory and
 bounds and the end-to-end times of phases 10-11 (``chains``), phase
 12's (``single_mesh``) and phase 14's walls, launches and checks
-(``sharded``) and phase 15's (``narrow``), then phase 16's bench lines,
+(``sharded``), phase 15's (``narrow``) and phase 17's (``real_size``),
+then phase 16's bench lines,
 as the bench prints them; each kernel's entry also
 counts its launches on the corpus (``launches_corpus``) and over the shard
 axis of 4 (``launches_sharded``). K1 has an entry a layout:
 ``predict_residual`` (uint16, launched on the batch path at -qp 15),
 ``predict_residual_p12`` (the main path) and ``predict_residual_u8``
-(-qp 8), each also at phase 12's row (``*_long_row``). K1's and K2's
+(-qp 8), each also at phase 12's row (``*_long_row``, the tiled
+kernel), and phase 17's ``predict_residual_tiled*`` (a layout and a
+batch shape each) and ``histogram_wide*`` entries. K1's and K2's
 times are medians of BATCHES batches of 50 launches; K4's twin runs
 once, over the path's 512 lanes and 512 lanes of random (freq, cum) pairs
 together, which take the kernel's exact path.
@@ -138,6 +151,13 @@ KNOB_DRIFT = 2.0
 # BENCH_TIMEOUT_S, and bench_huge in this process on a BENCH_HUGE_N grid
 BENCH_BATCH, BENCH_HUGE_N, BENCH_TIMEOUT_S = 64, 256, 300
 BENCH_METRICS = ("corpus", "e2e", "step", "decode", "decode-corpus")
+# phase 17: the main path at real mesh sizes and depths: batches of
+# (meshes, grid) at each -qp of REAL_QP (8: uint8, 11: the pack, 14:
+# uint16, 15-16: K2's wide bins), K1's tile sizes swept, and the -qp 15
+# batch's position_s split by stage and host profile
+REAL_BATCHES = ((32, 256), (8, 512))
+REAL_QP = (8, 11, 14, 15, 16)
+TILE_SWEEP = (1024, 2048, 4096)
 OPS = {"predict_residual": 12, "histogram": 2, "rans_words_scan": 30,
        "rans_scan_dense": 30, "rans_decode_lanes": 30}
 
@@ -303,10 +323,10 @@ def main() -> int:
         tdev.predict_residual(q_i32, gathers, vmin_dev, vmax_dev), sym)]
     del q_i32
     rng_k1 = np.random.default_rng(SEED + 1)
-    big_v = 1 << 17  # 768 KB of uint16 q a mesh: the direct-gather kernel
+    big_v = 1 << 17  # 768 KB of uint16 q a mesh: the tiled kernel
     _check(tdev.predict_fits_smem(q_dev.shape[1], 3, 2)
            and tdev.predict_fits_smem(q_dev.shape[1], 3, 4)
-           and not tdev.predict_fits_smem(big_v, 3, 2), "K1 kernel choice")
+           and tdev.predict_form(big_v, 3, 2) == "tiled", "K1 kernel choice")
     big_q = torch.from_numpy(rng_k1.integers(
         0, 1 << BITS, size=(8, big_v, 3)).astype(np.uint16)).to(dev)
     big_g = {name: torch.from_numpy(rng_k1.integers(
@@ -355,8 +375,8 @@ def main() -> int:
     _check(all(v == 0 for v in errs.values()), f"kernel != twin: {errs}")
     print(f"phase 2: kernels equal their twins exactly: K1 at "
           f"({BATCH}, {q_dev.shape[1]}, 3) uint16 and int32 (q rows in "
-          f"shared memory) and at V={big_v} (direct gather); K2 at {bins} "
-          f"bins (shared) and {wide} (global) + drop case; K3 at "
+          f"shared memory) and at V={big_v} (tiled, random gathers); K2 at "
+          f"{bins} bins (shared) and {wide} (wide) + drop case; K3 at "
           f"L={K3_LANES}, T={K3_T}, precisions {k3_prec.min()}-{k3_prec.max()}, ragged lengths")
 
     # ---- phase 3: the main path, counted --------------------------------
@@ -1260,6 +1280,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     bench_lines = _phase16(torch, dev, wall_s)
 
+    # ---- phase 17: the main path at real mesh sizes and depths ----------
+    torch.cuda.empty_cache()
+    real, k17 = _phase17(torch, np, native, tdev, tbatch, trl, encode,
+                         reset_launch_counts, dev, sync, wall_s, cuda_ms,
+                         cuda_ms_batches, kernel_only_ms, max_abs_err,
+                         nbytes, bound, traced, smi_line, positions, gathers,
+                         meshes)
+    errs.update({name: e["max_abs_err"] for name, e in k17.items()})
+
     # the launches of phase 13's counted path: the device plane of
     # encode_corpus over the mixed corpus, and its decode_corpus
     corpus_launches = {**corpus["encode"]["launches_manual"],
@@ -1309,9 +1338,22 @@ def main() -> int:
                      "library_ms", "bytes", "share_of_bound",
                      "kernel_only_ms", "shape")}}
                 for name, e in k15.items()]
+    kernels += [{"name": name, "route": "cuda", "source": src + e["file"],
+                 **{key: e[key] for key in (
+                     "replaces", "launched_on", "launches", "max_abs_err",
+                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                     "bytes", "share_of_bound", "kernel_only_ms", "shape",
+                     "form")},
+                 **{key: e[key] for key in ("layout", "gather_kernel_only_ms",
+                                            "tile_sweep_kernel_only_ms",
+                                            "bank_replays", "tables", "bins",
+                                            "splits")
+                    if key in e}}
+                for name, e in k17.items()]
     _check(all(e["launches"] > 0 and e["max_abs_err"] == 0
-               for e in (*k12.values(), *k15.values())),
-           f"a long-row or narrow-layout kernel: {k12} {k15}")
+               for e in (*k12.values(), *k15.values(), *k17.values())),
+           f"a long-row, narrow-layout or real-size kernel: {k12} {k15} "
+           f"{k17}")
     _check(all(e["launches"] > 0 for e in kernels if e["name"] in (
         "predict_residual", "histogram", "rans_words_scan")),
            "a kernel of the main path or of the -qp 15 path never launched")
@@ -1320,15 +1362,17 @@ def main() -> int:
                                                "corpus": corpus,
                                                "sharded": sharded,
                                                "narrow": narrow,
+                                               "real_size": real,
                                                "kernels": kernels}),
           file=sys.stderr)
     report["run_s"] = time.perf_counter() - t_start
-    print(f"chip_smoke: phases 1-16 in {report['run_s']:.1f} s")
+    print(f"chip_smoke: phases 1-17 in {report['run_s']:.1f} s")
     print(json.dumps({"single_mesh": single}))
     print(json.dumps({"chains": chains}))
     print(json.dumps({"corpus": corpus}))
     print(json.dumps({"sharded": sharded}))
     print(json.dumps({"narrow": narrow}))
+    print(json.dumps({"real_size": real}))
     for line in bench_lines:
         print(json.dumps(line))
     print(json.dumps({"kernels": kernels}))
@@ -1535,11 +1579,12 @@ def _phase12(torch, np, torchdraco, encode, tdev, tbatch,
     # uploads the 12-bit pack at -qp 11: phase 15.1 times each layout)
     q = torch.from_numpy(dev_c["q"]).to(dev)
     g = tbatch._device_gathers(topo, pos_att, dev, V)
+    tiles = tbatch._device_tiles(topo, pos_att, dev, V)
     lo = torch.from_numpy(dev_c["vmin"]).to(dev)
     hi = torch.from_numpy(dev_c["vmax"]).to(dev)
-    _check(not tdev.predict_fits_smem(V, 3, q.element_size()),
-           "K1 should take its direct-gather kernel at this row")
-    sym = tdev.predict_residual(q, g, lo, hi)
+    _check(tdev.predict_form(V, 3, q.element_size()) == "tiled",
+           "K1 should take its tiled kernel at this row")
+    sym = tdev.predict_residual(q, g, lo, hi, tiles)
     sync()
     k1_err = max_abs_err(sym, tdev.predict_residual_ref(q, g, lo, hi))
     flat = sym.view(1, -1)
@@ -1613,7 +1658,8 @@ def _phase12(torch, np, torchdraco, encode, tdev, tbatch,
         torch.int64)), "torch.bincount disagrees with K2 at 2^17 bins")
     k2_runs = cuda_ms_batches(lambda: tdev.histogram(flat, bins))
     seg_runs = cuda_ms_batches(lambda: tdev.histogram(seg, bins))
-    k1_runs = cuda_ms_batches(lambda: tdev.predict_residual(q, g, lo, hi))
+    k1_runs = cuda_ms_batches(lambda: tdev.predict_residual(q, g, lo, hi,
+                                                            tiles))
     k12 = {
         "predict_residual_long_row": {
             "file": "predict_residual.cu",
@@ -1624,10 +1670,11 @@ def _phase12(torch, np, torchdraco, encode, tdev, tbatch,
             "plain_ms": cuda_ms(lambda: tdev.predict_residual_ref(
                 q, g, lo, hi), 5),
             "kernel_only_ms": kernel_only_ms(
-                lambda: tdev.predict_residual(q, g, lo, hi),
-                "predict_gather_kernel", reps=10),
-            "library_ms": None,
-            **bound(nbytes(q, lo, hi, sym, *g.values()), 12 * sym.numel())},
+                lambda: tdev.predict_residual(q, g, lo, hi, tiles),
+                "predict_tiled_kernel", reps=10),
+            "library_ms": None, "form": "tiled",
+            **bound(nbytes(q, lo, hi, sym, tiles.verts, tiles.off,
+                           tiles.local), 12 * sym.numel())},
         "histogram_long_row": {
             "file": "histogram.cu",
             "replaces": "tpudraco/ops/pallas_kernels.py:71",
@@ -1645,7 +1692,7 @@ def _phase12(torch, np, torchdraco, encode, tdev, tbatch,
             "wide_bins": wide, "wide_ms": cuda_ms(
                 lambda: tdev.histogram(rnd, wide), 10),
             "wide_kernel_only_ms": kernel_only_ms(
-                lambda: tdev.histogram(rnd, wide), "histogram_global_kernel",
+                lambda: tdev.histogram(rnd, wide), "histogram_smem_kernel",
                 reps=10),
             "wide_library_ms": cuda_ms(wide_lib, 20),
             "wide_plain_ms": cuda_ms(
@@ -1671,9 +1718,9 @@ def _phase12(torch, np, torchdraco, encode, tdev, tbatch,
     for e in k12.values():
         e["share_of_bound"] = e["bound_ms"] / e["ms"]
     h = k12["histogram_long_row"]
-    print(f"phase 12.4: K1 at (1, {V}, 3) (direct gather) and K2 at (1, "
+    print(f"phase 12.4: K1 at (1, {V}, 3) (tiled) and K2 at (1, "
           f"{flat.shape[1]}) {bins} bins on {splits} blocks, at {wide} bins "
-          f"(global) and at a segment's (1, {seg.shape[1]}) equal their "
+          f"(wide) and at a segment's (1, {seg.shape[1]}) equal their "
           f"twins; K2 {h['ms']:.4f} ms (alone {h['kernel_only_ms']:.4f}) "
           f"against {h['one_block_ms']:.4f} (alone "
           f"{h['one_block_kernel_only_ms']:.4f}) on one block, bound "
@@ -1742,6 +1789,7 @@ def _phase12(torch, np, torchdraco, encode, tdev, tbatch,
     # what phase 14.3 shards over the stream axis: the encoder with the
     # grid's topology cached, the grid, its encode(), and 12.4's row
     reuse = {"enc": enc, "mesh": mesh1, "blob": ref1, "q": q, "gathers": g,
+             "tiles": tiles,
              "vmin": lo, "vmax": hi, "symbols": sym, "counts": counts}
     return one, k12, reuse
 
@@ -1782,13 +1830,17 @@ def _phase15(torch, np, native, tdev, tbatch, encode, reset_launch_counts,
                          for a in native.pack12(q_host))
         return torch.from_numpy(q_host).to(dev)
 
-    # 15.1: K1 on each layout, at the batch shape and at one row
+    # 15.1: K1 on each layout, at the batch shape and at one row, where
+    # the tiled kernel is timed over TILE_SWEEP too
     k1 = {}
     row_pos = np.ascontiguousarray(
         reuse12["mesh"].position_attribute().values, np.float32)[None]
-    for where, pos_f, g, kernel in (
-            ("batch", positions, gathers, "predict_rows_kernel"),
-            ("row", row_pos, reuse12["gathers"], "predict_gather_kernel")):
+    sweep = {t: tdev.predict_tiles(reuse12["gathers"], t)
+             for t in TILE_SWEEP}
+    for where, pos_f, g, tiles, kernel in (
+            ("batch", positions, gathers, None, "predict_rows_kernel"),
+            ("row", row_pos, reuse12["gathers"], reuse12["tiles"],
+             "predict_tiled_kernel")):
         sym11 = None
         for layout, qp in (("u16", 11), ("pack12", 11), ("u8", 8)):
             q_host, _, _, vmin, vmax = native.quantize_batch(pos_f, qp)
@@ -1800,7 +1852,7 @@ def _phase15(torch, np, native, tdev, tbatch, encode, reset_launch_counts,
             _check(tdev.predict_fits_smem(pos_f.shape[1], 3, staged)
                    == (where == "batch"),
                    f"15.1: K1's kernel choice for {layout} at the {where}")
-            sym = tdev.predict_residual(up, g, lo, hi)
+            sym = tdev.predict_residual(up, g, lo, hi, tiles)
             sync()
             err = max_abs_err(sym, tdev.predict_residual_ref(up, g, lo, hi))
             if qp == 11:  # the pack reads the same values as uint16
@@ -1809,20 +1861,29 @@ def _phase15(torch, np, native, tdev, tbatch, encode, reset_launch_counts,
                 else:
                     err = max(err, max_abs_err(sym, sym11))
             runs = cuda_ms_batches(lambda: tdev.predict_residual(up, g, lo,
-                                                                 hi))
+                                                                 hi, tiles))
             ops = 12 * sym.numel() + (6 * q_host.size if layout == "pack12"
                                       else 0)
+            # what the kernel reads beside q: the gathers or the tables
+            reads = (g.values() if tiles is None
+                     else (tiles.verts, tiles.off, tiles.local))
             k1.setdefault(where, {})[layout] = {
                 "shape": list(q_host.shape), "qp": qp,
                 "max_abs_err": err, "ms": runs["median"], "ms_runs": runs,
                 "plain_ms": cuda_ms(lambda: tdev.predict_residual_ref(
                     up, g, lo, hi), 5),
                 "kernel_only_ms": kernel_only_ms(
-                    lambda: tdev.predict_residual(up, g, lo, hi), kernel,
-                    reps=10),
-                **bound(nbytes(*parts, lo, hi, sym, *g.values()), ops)}
+                    lambda: tdev.predict_residual(up, g, lo, hi, tiles),
+                    kernel, reps=10),
+                **bound(nbytes(*parts, lo, hi, sym, *reads), ops)}
+            if tiles is not None:
+                k1[where][layout]["tile_sweep_kernel_only_ms"] = {
+                    t: kernel_only_ms(lambda: tdev.predict_residual(
+                        up, g, lo, hi, sweep[t]), kernel, reps=10)
+                    for t in TILE_SWEEP}
             del up, parts, sym
         del sym11
+    del sweep
     rec["k1"] = k1
     errs = [e["max_abs_err"] for w in k1.values() for e in w.values()]
     _check(all(e == 0 for e in errs), f"15.1: K1 on a layout differs from "
@@ -1832,7 +1893,12 @@ def _phase15(torch, np, native, tdev, tbatch, encode, reset_launch_counts,
           f"{BATCHES} x 50), alone ms, bound ms: " + "; ".join(
               f"{w} {lay} {e['ms']:.4f}, {e['kernel_only_ms']:.4f}, "
               f"{e['bound_ms']:.4f} ({e['bytes'] / 1e6:.2f} MB)"
-              for w, d in k1.items() for lay, e in d.items()))
+              for w, d in k1.items() for lay, e in d.items())
+          + "; the row's tiles " + "/".join(map(str, TILE_SWEEP))
+          + " alone: " + ", ".join(
+              f"{lay} " + "/".join(f"{v:.4f}" for v in
+                                   e["tile_sweep_kernel_only_ms"].values())
+              for lay, e in k1["row"].items()))
 
     # 15.2-15.3: the host's share and the copy, on the batch's values
     q11 = native.quantize_batch(positions, 11)[0]
@@ -2698,6 +2764,404 @@ def _write_glb_corpus(torchdraco, Scene, save_scene_glb, src) -> list:
     with open(os.path.join(src, "broken.glb"), "wb") as fh:
         fh.write(b"glTF\x02\x00\x00\x00 not a scene")
     return paths
+
+
+def _bank_replays(local, itemsize: int) -> float:
+    """Shared-memory wavefronts a warp's gather of one index takes in K1's
+    tiled kernel, averaged over the warps and the indices a step reads,
+    counted from the tile tables' local indices ((5, T), -1 unread). A
+    vertex's slot is 4 staged values (``csrc/predict_residual.cu``
+    ``Slot``), W = itemsize 32-bit words read by one vector load, which
+    the card serves in W phases of 32 / W lanes; in a phase, distinct
+    slots whose index agrees modulo 32 / W share banks. W is the least."""
+    import numpy as np
+    W = itemsize
+    group = 32 // W
+    T = local.shape[1]
+    loc = np.pad(local.astype(np.int64), ((0, 0), (0, -T % 32)),
+                 constant_values=-1).reshape(5, -1, 32)
+    total, count = 0.0, 0
+    for k in range(5):
+        waves = np.zeros(loc.shape[1])
+        for p in range(W):
+            lanes = np.sort(loc[k][:, p * group:(p + 1) * group], axis=1)
+            first = np.ones_like(lanes, dtype=bool)
+            first[:, 1:] = lanes[:, 1:] != lanes[:, :-1]
+            first &= lanes >= 0
+            rows = np.repeat(np.arange(lanes.shape[0]), group)
+            per = np.bincount(rows * group + lanes.ravel() % group,
+                              weights=first.ravel(),
+                              minlength=lanes.shape[0] * group)
+            waves += per.reshape(-1, group).max(axis=1)
+        live = (loc[k] >= 0).any(axis=1)
+        total += float(waves[live].sum())
+        count += int(live.sum())
+    return total / max(count, 1)
+
+
+def _phase17(torch, np, native, tdev, tbatch, trl, encode,
+             reset_launch_counts, dev, sync, wall_s, cuda_ms,
+             cuda_ms_batches, kernel_only_ms, max_abs_err, nbytes, bound,
+             traced, smi_line, positions64, gathers64, meshes64):
+    """The main path at real mesh sizes and depths. 17.1: for each batch of
+    REAL_BATCHES (a 32-frame capture of 256 x 256 grids, 8 scan tiles or
+    CAD parts of 512 x 512; seed SEED, positions only) and each -qp of
+    REAL_QP, ``encode_meshes_device`` on the card (a first call, then one
+    counted: K1's tiled kernel once, never the direct gather, K2's wide
+    form at 15 and 16, in the layout of the depth), every blob equal to
+    the host plane (``encode_meshes``) and the first and last to
+    ``encode()``; the 512^2 batch at -qp 11 traced for the idle share.
+    17.2: the tiled K1 against its plain version at both batch shapes in
+    the pack, uint16 and uint8 layouts, timed beside the direct-gather
+    kernel on the same inputs and over TILE_SWEEP, with the bank replays
+    of its staged tile; and at the 64 x 64 batch's (512, 4096, 3), where
+    the rows kernel runs, the tiled kernel timed beside it. 17.3: K2's
+    wide form against its plain version at (512, 12288) on the 64 x 64
+    batch's own -qp 15 symbols and at (32, 196608) on the 256^2 batch's
+    -qp 15 and 16 symbols (2^16, 2^17 bins) and on uniform ones at 2^17,
+    timed beside ``torch.bincount``. 17.4: the -qp 15 batch of 512 64 x 64 meshes:
+    ``position_s`` split by stage (the host quantize, the upload, the
+    fused step, the entropy stage), a host profile of one call and a
+    device trace. Returns (the phase's record, {kernel line name:
+    entry})."""
+    import cProfile
+    import io
+    import pstats
+
+    import torchdraco
+    from torchdraco.encode import Config
+    from torchdraco.models import AttributeType
+    from torchdraco.ops import _build
+
+    t_phase = time.perf_counter()
+    rec = {"card": smi_line}
+    lib = _build.load()
+
+    def counts():
+        return (dict(tdev.predict_residual.n_launches_by_form),
+                dict(tdev.predict_residual.n_launches_by_layout),
+                dict(tdev.histogram.n_launches_by_form))
+
+    def cfg_of(qp):
+        return Config(quant_bits={AttributeType.POSITION: qp})
+
+    # 17.1: the batch path at each depth, counted
+    runs, path, batches = {}, {}, {}
+    for B, n in REAL_BATCHES:
+        pos, faces = torchdraco.make_mesh_batch(B, n, SEED)
+        meshes = torchdraco.build_meshes(pos, faces)
+        batches[n] = (pos, meshes)
+        for qp in REAL_QP:
+            enc = tbatch.BatchEncoder(cfg=cfg_of(qp))
+            _, first_s = wall_s(lambda: enc.encode_meshes_device(meshes,
+                                                                 bits=qp))
+            first_t = dict(enc.timings)
+            reset_launch_counts()
+            got, secs = wall_s(lambda: enc.encode_meshes_device(meshes,
+                                                                bits=qp))
+            k1f, k1l, k2f = counts()
+            layout = tbatch.upload_layout(qp)
+            k2_form = tdev.histogram_form(tdev.default_hist_bins(qp))
+            where = f"17.1 {n}^2 x {B} at -qp {qp}"
+            _check(k1f == {"rows": 0, "tiled": 1, "gather": 0},
+                   f"{where}: K1 launches by form {k1f}")
+            _check(k1l == {k: int(k == layout) for k in k1l},
+                   f"{where}: K1 launches by layout {k1l}")
+            _check(k2f == {k: int(k == k2_form) for k in k2f}
+                   and (qp < 15) == (k2_form == "smem"),
+                   f"{where}: K2 launches by form {k2f}")
+            path[(n, layout)] = k1f["tiled"]
+            path[(n, f"k2_qp{qp}")] = k2f[k2_form]
+            host, host_s = wall_s(lambda: tbatch.BatchEncoder(
+                cfg=cfg_of(qp), use_device=False).encode_meshes(meshes))
+            _check(got == host, f"{where}: blobs "
+                   f"{[i for i, (a, b) in enumerate(zip(got, host)) if a != b]}"
+                   f" differ from the host plane")
+            ref, enc_s = wall_s(lambda: [encode(meshes[i], cfg=cfg_of(qp))
+                                         for i in (0, B - 1)])
+            _check([got[0], got[-1]] == ref, f"{where}: differs from "
+                   f"encode()")
+            runs[f"{n}x{B}_qp{qp}"] = {
+                "layout": layout, "k2_form": k2_form, "mb_in": pos.nbytes / 1e6,
+                "first_s": first_s, "first_timings": first_t, "s": secs,
+                "timings": dict(enc.timings), "host_plane_s": host_s,
+                "encode_s_per_mesh": enc_s / 2,
+                "mb_s": pos.nbytes / 1e6 / secs,
+                "host_plane_mb_s": pos.nbytes / 1e6 / host_s}
+    B, n = REAL_BATCHES[-1]
+    enc_t = tbatch.BatchEncoder(cfg=cfg_of(11))
+    tr = rec["trace_qp11"] = {"grid": n, "meshes": B, **traced(
+        lambda: enc_t.encode_meshes_device(batches[n][1], bits=11))}
+    rec["runs"] = runs
+    print("phase 17.1: encode_meshes_device at real sizes, every blob equal "
+          "to the host plane and two a depth to encode(), K1 tiled once, K2 "
+          "wide at -qp 15-16; s warm (first) / host plane: " + "; ".join(
+              f"{k} {v['s']:.3f} ({v['first_s']:.3f}) / "
+              f"{v['host_plane_s']:.3f}" for k, v in runs.items())
+          + f"; the {n}^2 batch at -qp 11 traced: busy "
+          f"{tr['busy_ms']:.2f} of {tr['wall_ms']:.1f} ms, idle share "
+          f"{tr['idle_share']}")
+
+    def upload(q_host, layout):
+        if layout == "u8":
+            return torch.from_numpy(q_host.astype(np.uint8)).to(dev)
+        if layout == "pack12":
+            return tuple(torch.from_numpy(a).to(dev)
+                         for a in native.pack12(q_host))
+        return torch.from_numpy(q_host).to(dev)
+
+    # 17.2: the tiled K1 at both batch shapes, each layout
+    entries = {}
+    replaces = "tpudraco/ops/pallas_kernels.py:174 (past T*V > 256 MiB: " \
+               "the XLA gather step, tpudraco/parallel/batch.py:1650)"
+    for B, n in REAL_BATCHES:
+        pos, meshes = batches[n]
+        topo = tbatch.PreparedTopology(meshes[0])
+        att = meshes[0].position_attribute()
+        V = n * n
+        g = tbatch._device_gathers(topo, att, dev, V)
+        T = g["order"].numel()
+        sweep = {t: tdev.predict_tiles(g, t) for t in TILE_SWEEP}
+        tiles = sweep[tdev.PREDICT_TILE]
+        local = tiles.local.cpu().numpy()
+        for layout, qp in (("pack12", 11), ("u16", 14), ("u8", 8)):
+            q_host, _, _, vmin, vmax = native.quantize_batch(pos, qp)
+            lo = torch.from_numpy(vmin).to(dev)
+            hi = torch.from_numpy(vmax).to(dev)
+            up = upload(q_host, layout)
+            parts = up if isinstance(up, tuple) else (up,)
+            sym = tdev.predict_residual(up, g, lo, hi, tiles)
+            sync()
+            err = max_abs_err(sym, tdev.predict_residual_ref(up, g, lo, hi))
+            out = torch.empty_like(sym)
+
+            def gather_form():
+                with tdev._launch_on(parts[0]) as stream:
+                    rc = getattr(lib, tdev._K1_ENTRY[layout])(
+                        *(t.data_ptr() for t in parts),
+                        *(g[k].data_ptr() for k in tdev._GATHER_INDEX),
+                        *(g[k].data_ptr() for k in tdev._GATHER_MASK),
+                        lo.data_ptr(), hi.data_ptr(), out.data_ptr(), B, V,
+                        T, 3, 0, stream)
+                    _build.check(rc, "predict_gather_kernel")
+            gather_form()
+            sync()
+            err = max(err, max_abs_err(out, sym))
+            k1_runs = cuda_ms_batches(
+                lambda: tdev.predict_residual(up, g, lo, hi, tiles))
+            ops = 12 * sym.numel() + (6 * q_host.size if layout == "pack12"
+                                      else 0)
+            staged = 1 if layout == "u8" else 2
+            name = "predict_residual_tiled" + {
+                "pack12": "_p12", "u16": "", "u8": "_u8"}[layout] + \
+                ("" if n == REAL_BATCHES[0][1] else f"_{n}")
+            entries[name] = {
+                "file": "predict_residual.cu", "replaces": replaces,
+                "launched_on": f"phase 17.1, {n}^2 x {B} at -qp {qp}",
+                "launches": path[(n, layout)], "form": "tiled",
+                "layout": layout, "shape": [B, V, 3], "qp": qp,
+                "max_abs_err": err, "ms": k1_runs["median"],
+                "ms_runs": k1_runs,
+                "plain_ms": cuda_ms(lambda: tdev.predict_residual_ref(
+                    up, g, lo, hi), 5),
+                "kernel_only_ms": kernel_only_ms(
+                    lambda: tdev.predict_residual(up, g, lo, hi, tiles),
+                    "predict_tiled_kernel", reps=10),
+                "gather_kernel_only_ms": kernel_only_ms(
+                    gather_form, "predict_gather_kernel", reps=10),
+                "tile_sweep_kernel_only_ms": {
+                    t: kernel_only_ms(lambda: tdev.predict_residual(
+                        up, g, lo, hi, sweep[t]), "predict_tiled_kernel",
+                        reps=10) for t in TILE_SWEEP},
+                "bank_replays": _bank_replays(local, staged),
+                "library_ms": None,
+                "tables": {"tile": tiles.tile, "max_verts": tiles.max_verts,
+                           "verts_per_step": tiles.verts.numel() / T,
+                           "bytes": tiles.nbytes},
+                **bound(nbytes(*parts, lo, hi, sym, tiles.verts, tiles.off,
+                               tiles.local), ops)}
+            del up, parts, sym, out
+        del sweep, tiles, g
+
+    # the tiled kernel at the batch's own shape, where the rows kernel runs
+    B, V, _ = positions64.shape
+    T = gathers64["order"].numel()
+    tiles = tdev.predict_tiles(gathers64)
+    at_rows = rec["tiled_at_the_rows_shape"] = {
+        "shape": [B, V, 3], "tile": tiles.tile}
+    for layout, qp in (("pack12", 11), ("u16", 14), ("u8", 8)):
+        q_host, _, _, vmin, vmax = native.quantize_batch(positions64, qp)
+        lo = torch.from_numpy(vmin).to(dev)
+        hi = torch.from_numpy(vmax).to(dev)
+        up = upload(q_host, layout)
+        parts = up if isinstance(up, tuple) else (up,)
+        _check(tdev.predict_form(V, 3, tdev.STAGED_ITEMSIZE[layout])
+               == "rows", f"17.2: the {layout} batch leaves the rows kernel")
+        sym = tdev.predict_residual(up, gathers64, lo, hi)
+        out = torch.empty_like(sym)
+
+        def tiled_form():
+            with tdev._launch_on(parts[0]) as stream:
+                rc = getattr(lib, tdev._K1_TILED_ENTRY[layout])(
+                    *(t.data_ptr() for t in parts), tiles.verts.data_ptr(),
+                    tiles.off.data_ptr(), tiles.local.data_ptr(),
+                    lo.data_ptr(), hi.data_ptr(), out.data_ptr(), B, V, T,
+                    3, tiles.tile, tiles.off.numel() - 1, tiles.max_verts,
+                    stream)
+                _build.check(rc, "predict_tiled_kernel")
+        tiled_form()
+        sync()
+        _check(torch.equal(out, sym), f"17.2: the tiled kernel differs "
+               f"from the rows kernel at the {layout} batch")
+        at_rows[layout] = {
+            "rows_kernel_only_ms": kernel_only_ms(
+                lambda: tdev.predict_residual(up, gathers64, lo, hi),
+                "predict_rows_kernel", reps=10),
+            "tiled_kernel_only_ms": kernel_only_ms(
+                tiled_form, "predict_tiled_kernel", reps=10)}
+    del tiles, up, parts, sym, out
+    print("phase 17.2: the tiled K1 equals its plain version and the "
+          "direct gather in each layout; ms (alone; direct gather alone; "
+          "tiles " + "/".join(map(str, TILE_SWEEP)) + " alone), bound: "
+          + "; ".join(
+              f"{k} {e['ms']:.4f} ({e['kernel_only_ms']:.4f}; "
+              f"{e['gather_kernel_only_ms']:.4f}; "
+              + "/".join(f"{v:.4f}" for v in
+                         e["tile_sweep_kernel_only_ms"].values())
+              + f"), {e['bound_ms']:.4f}, bank replays "
+              f"{e['bank_replays']:.2f}" for k, e in entries.items())
+          + f"; at the batch's {at_rows['shape']}, alone, rows kernel / "
+          f"tiled kernel: " + ", ".join(
+              f"{k} {v['rows_kernel_only_ms']:.4f} / "
+              f"{v['tiled_kernel_only_ms']:.4f}"
+              for k, v in at_rows.items() if isinstance(v, dict)))
+
+    # 17.3: K2's wide form on the path's symbols
+    q15, _, _, vmin15, vmax15 = native.quantize_batch(positions64, 15)
+    sym64 = tdev.predict_residual(
+        torch.from_numpy(q15).to(dev), gathers64,
+        torch.from_numpy(vmin15).to(dev),
+        torch.from_numpy(vmax15).to(dev)).view(len(positions64), -1)
+    pos256, meshes256 = batches[REAL_BATCHES[0][1]]
+    topo = tbatch.PreparedTopology(meshes256[0])
+    g = tbatch._device_gathers(topo, meshes256[0].position_attribute(), dev,
+                               pos256.shape[1])
+    cases = [("histogram_wide", sym64, 15, "phase 17.4, 64^2 x "
+              f"{len(positions64)} at -qp 15", None)]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for qp in (15, 16):
+        q, _, _, lo_, hi_ = native.quantize_batch(pos256, qp)
+        s = tdev.predict_residual(
+            torch.from_numpy(q).to(dev), g, torch.from_numpy(lo_).to(dev),
+            torch.from_numpy(hi_).to(dev)).view(len(pos256), -1)
+        cases.append((f"histogram_wide_{s.shape[1]}_qp{qp}", s, qp,
+                      f"phase 17.1, {REAL_BATCHES[0][1]}^2 x "
+                      f"{REAL_BATCHES[0][0]} at -qp {qp}",
+                      path[(REAL_BATCHES[0][1], f"k2_qp{qp}")]))
+    rng = np.random.default_rng(SEED + 17)
+    uniform = torch.from_numpy(rng.integers(
+        -9, (1 << 17) + 9, size=cases[-1][1].shape, dtype=np.int32)).to(dev)
+    def k2_entry(sym, bins):
+        keep = (sym >= 0) & (sym < bins)
+        flat = (sym.to(torch.int64) + torch.arange(
+            sym.shape[0], device=dev)[:, None] * bins)[keep]
+
+        def lib_call():
+            return torch.bincount(flat, minlength=sym.shape[0] * bins)
+        got = tdev.histogram(sym, bins)
+        sync()
+        _check(torch.equal(lib_call().view(sym.shape[0], bins),
+                           got.to(torch.int64)),
+               "torch.bincount disagrees with histogram_smem_kernel")
+        runs_ = cuda_ms_batches(lambda: tdev.histogram(sym, bins))
+        e = dict(max_abs_err=max_abs_err(got, tdev.bincount_kernel(sym, bins)),
+                 ms=runs_["median"], ms_runs=runs_,
+                 kernel_only_ms=kernel_only_ms(
+                     lambda: tdev.histogram(sym, bins),
+                     "histogram_smem_kernel", reps=10))
+        e.update(plain_ms=cuda_ms(lambda: tdev.bincount_kernel(sym, bins), 5),
+                 library_ms=cuda_ms(lib_call, 10),
+                 splits=tdev.histogram_splits(*sym.shape, bins, sms),
+                 **bound(nbytes(sym) + 4 * sym.shape[0] * bins,
+                         2 * sym.numel()))
+        return e
+
+    # 17.4 first: its counted run gives the (512, 12288) entry's launches
+    enc15 = tbatch.BatchEncoder(cfg=cfg_of(15))
+    enc15.encode_meshes_device(meshes64, bits=15)
+    reset_launch_counts()
+    got15, s15 = wall_s(lambda: enc15.encode_meshes_device(meshes64,
+                                                           bits=15))
+    wide_launches = counts()[2]["wide"]
+    _check(wide_launches == 1, f"17.4: K2's wide form launched "
+           f"{wide_launches} times at -qp 15")
+    stages = {"encode_meshes_device_s": s15, "timings": dict(enc15.timings)}
+    batch15 = np.stack([m.position_attribute().values.astype(np.float32)
+                        for m in meshes64])
+    topo64 = enc15._topo_cache[next(iter(enc15._topo_cache))]
+    att64 = meshes64[0].position_attribute()
+    (q_np, _, _, vmin, vmax), stages["host_quantize_s"] = wall_s(
+        lambda: tbatch._host_quantize(batch15, 15))
+    (q_up, _), stages["upload_s"] = wall_s(
+        lambda: tbatch._upload(q_np, 15, [dev]))
+    g64 = tbatch._device_gathers(topo64, att64, dev, batch15.shape[1])
+    lo64 = torch.from_numpy(np.asarray(vmin, np.int32)).to(dev)
+    hi64 = torch.from_numpy(np.asarray(vmax, np.int32)).to(dev)
+    (sym15, cnt15), stages["fused_step_s"] = wall_s(
+        lambda: tdev.encode_step_from_q_cuda(q_up[0], g64, lo64, hi64,
+                                             bits=15))
+    _, stages["entropy_s"] = wall_s(
+        lambda: trl.encode_group_entropy_device(sym15, cnt15))
+    prof = cProfile.Profile()
+    prof.enable()
+    enc15.encode_meshes_device(meshes64, bits=15)
+    sync()
+    prof.disable()
+    text = io.StringIO()
+    pstats.Stats(prof, stream=text).sort_stats("tottime").print_stats(12)
+    top = [ln.strip() for ln in text.getvalue().splitlines()
+           if ln.strip()[:1].isdigit()][:12]
+    stages["host_profile_top_tottime"] = top
+    stages["trace"] = traced(lambda: enc15.encode_meshes_device(
+        meshes64, bits=15))
+    rec["qp15_position_split"] = stages
+    print(f"phase 17.4: -qp 15, {len(meshes64)} meshes of 64^2: "
+          f"encode_meshes_device {s15:.3f} s, position_s "
+          f"{stages['timings']['position_s']:.3f}: host quantize "
+          f"{stages['host_quantize_s']:.4f}, upload "
+          f"{stages['upload_s']:.4f}, fused step "
+          f"{stages['fused_step_s']:.4f}, entropy stage "
+          f"{stages['entropy_s']:.4f} s; device busy "
+          f"{stages['trace']['busy_ms']:.2f} of "
+          f"{stages['trace']['wall_ms']:.1f} ms (idle share "
+          f"{stages['trace']['idle_share']}); host profile, most time "
+          f"first: " + " | ".join(top[:6]))
+
+    k2 = {}
+    for name, sym, qp, where, launches in cases:
+        bins = tdev.default_hist_bins(qp)
+        k2[name] = {"file": "histogram.cu",
+                    "replaces": "tpudraco/ops/pallas_kernels.py:71",
+                    "launched_on": where, "form": "wide",
+                    "launches": wide_launches if launches is None
+                    else launches,
+                    "shape": list(sym.shape), "bins": bins,
+                    **k2_entry(sym, bins)}
+    # uniform symbols, on no path: where the forms differ most
+    rec["k2_uniform"] = {"shape": list(uniform.shape), "bins": 1 << 17,
+                         **k2_entry(uniform, 1 << 17)}
+    entries.update(k2)
+    print("phase 17.3: K2's wide form equals its plain version; ms "
+          "(alone), torch.bincount ms, bound: " + "; ".join(
+              f"{k} {e['shape']} x {e['bins']} {e['ms']:.4f} "
+              f"({e['kernel_only_ms']:.4f}), {e['library_ms']:.4f}, "
+              f"{e['bound_ms']:.4f}" for k, e in (
+                  *k2.items(), ("uniform", rec["k2_uniform"]))))
+    for e in entries.values():
+        e["share_of_bound"] = e["bound_ms"] / e["ms"]
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 17: {rec['phase_s']:.1f} s")
+    return rec, entries
 
 
 def _phase16(torch, dev, wall_s) -> list:

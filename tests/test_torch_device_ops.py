@@ -148,7 +148,8 @@ def test_wrappers_take_the_twin_only_for_cpu_tensors():
 def test_predict_kernel_is_chosen_from_the_shape():
     """K1's wrapper picks its kernel from (V, C, itemsize) alone: the
     shared-memory kernel while the mesh's skewed q row and the staging
-    tile fit the budget, the direct-gather kernel past it."""
+    tile fit the budget, the tiled kernel past it (``predict_form``; the
+    direct gather for C > 4)."""
     cap = tdev.PREDICT_SMEM_MAX_BYTES
     assert tdev.predict_fits_smem(4096, 3, 2)
     assert tdev.predict_fits_smem(4096, 3, 4)

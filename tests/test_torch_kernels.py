@@ -5,6 +5,8 @@ Every test here needs an NVIDIA GPU and skips without one; on a machine
 with a card run them with ``python -m pytest -m cuda
 tests/test_torch_kernels.py``. Equality is exact (tolerance 0)."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -211,7 +213,8 @@ def test_rans_dense_guard_steps_match_twin(cuda, prec):
 def test_predict_residual_kernel_shapes(cuda, C, dtype, B, V, T):
     """K1 on random gathers: C = 1..3, uint16 and int32 q, T != V, rows
     that are not 16-byte aligned, and a V past the shared-memory budget
-    (the direct-gather kernel, chosen by the shape)."""
+    (the tiled kernel, chosen by the shape, with tables built for the
+    call)."""
     past_budget = not tdev.predict_fits_smem(
         V, C, 2 if dtype == torch.uint16 else 4)
     assert past_budget == (V == 50000 and (C > 1 or dtype == torch.int32))
@@ -236,8 +239,8 @@ def test_predict_residual_narrow_layouts(cuda, layout, V, C):
     """K1 reading uint8 (8 bits) and the 12-bit pack (12 bits) at B = 3
     with an odd V * C, so that the rows of meshes 1 and 2 start unaligned:
     the shared-memory kernel at 49 x 3, the direct-gather kernel at C = 5
-    and past the shared-memory budget. Equal to the twin on the int32
-    values, and counted under its layout."""
+    and the tiled kernel past the shared-memory budget. Equal to the twin
+    on the int32 values, and counted under its layout."""
     bits = 8 if layout == "u8" else 12
     assert tdev.predict_fits_smem(V, C, 1 if layout == "u8" else 2) == (
         V == 49)
@@ -542,3 +545,138 @@ def test_stream_sharded_mesh_on_the_card(cuda):
         whole["vmin"], whole["vmax"], bits=11, mesh_axis=axis)
     assert torch.equal(torch.cat(parts, dim=1), whole["symbols"][0])
     assert torch.equal(counts, whole["counts"][0])
+
+
+def _upload(q: np.ndarray, layout: str, dev):
+    if layout == "u8":
+        return torch.from_numpy(q.astype(np.uint8)).to(dev)
+    if layout == "pack12":
+        return tuple(torch.from_numpy(a).to(dev)
+                     for a in torchdraco.native.pack12(q))
+    return torch.from_numpy(q.astype(np.uint16 if layout == "u16"
+                                     else np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("layout", ("u8", "pack12", "u16", "i32"))
+@pytest.mark.parametrize("C", (1, 2, 3, 4))
+@pytest.mark.parametrize("B,V,T", [(3, 50000, 900), (2, 45001, 45018),
+                                   (1, 120001, 9000)])
+def test_tiled_predict_kernel_shapes(cuda, layout, C, B, V, T):
+    """K1's tiled kernel on random gathers past the shared-memory budget
+    in every layout and C = 1..4 (odd V * C: rows that start unaligned),
+    with tables built for the call and with tables of tile 32 and 4096
+    (where they fit): equal to the plain version, counted under its form
+    and layout."""
+    itemsize = {"u8": 1, "pack12": 2, "u16": 2, "i32": 4}[layout]
+    if tdev.predict_form(V, C, itemsize) != "tiled":
+        pytest.skip("the rows kernel takes this shape: "
+                    "test_predict_residual_kernel_shapes holds it")
+    rng = np.random.default_rng(B * V + C)
+    q = rng.integers(0, 1 << (8 if layout == "u8" else 12),
+                     size=(B, V, C)).astype(np.uint16)
+    g = {k: torch.from_numpy(rng.integers(0, V, size=T).astype(np.int32))
+         .to(cuda) for k in ("order", "next", "prev", "opp", "fallback")}
+    g["can_para"] = torch.from_numpy(rng.random(T) < 0.7).to(cuda)
+    g["has_fallback"] = torch.from_numpy(rng.random(T) < 0.6).to(cuda)
+    vmin = torch.from_numpy(q.min(axis=(1, 2)).astype(np.int32)).to(cuda)
+    vmax = torch.from_numpy(q.max(axis=(1, 2)).astype(np.int32)).to(cuda)
+    up = _upload(q, layout, cuda)
+    want = tdev.predict_residual_ref(up, g, vmin, vmax)
+    forms = dict(tdev.predict_residual.n_launches_by_form)
+    n0 = tdev.predict_residual.n_launches_by_layout[layout]
+    got = tdev.predict_residual(up, g, vmin, vmax)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert tdev.predict_residual.n_launches_by_form["tiled"] == \
+        forms["tiled"] + 1
+    assert tdev.predict_residual.n_launches_by_layout[layout] == n0 + 1
+    for tile in (32, 4096):
+        tiles = tdev.predict_tiles(g, tile)
+        if tdev._tiled_smem_bytes(tiles, C, itemsize) \
+                > tdev.SMEM_MAX_BYTES:
+            with pytest.raises(ValueError):
+                tdev.predict_residual(up, g, vmin, vmax, tiles)
+            continue
+        assert torch.equal(tdev.predict_residual(up, g, vmin, vmax, tiles),
+                           want), tile
+
+
+@pytest.mark.parametrize("layout,bits", (("u8", 8), ("pack12", 11),
+                                         ("u16", 15), ("i32", 18)))
+@pytest.mark.parametrize("n,batch", ((140, 4), (256, 2)))
+def test_tiled_predict_kernel_on_grids(cuda, layout, bits, n, batch):
+    """The tiled kernel on grid traversals at the batch path's depths,
+    with the topology's cached tables, against the plain version."""
+    positions, faces = torchdraco.make_mesh_batch(batch, n, bits)
+    mesh0 = torchdraco.build_meshes(positions[:1], faces)[0]
+    topo = tbatch.PreparedTopology(mesh0)
+    att = mesh0.position_attribute()
+    g = tbatch._device_gathers(topo, att, cuda, n * n)
+    q, _, _, vmin, vmax = torchdraco.native.quantize_batch(positions, bits) \
+        if bits <= 16 else (None,) * 5
+    if q is None:
+        q, _, _ = tbatch.quantize_positions_host(positions, bits)
+        vmin, vmax = q.min(axis=(1, 2)), q.max(axis=(1, 2))
+    up = _upload(q, layout, cuda)
+    lo = torch.from_numpy(np.asarray(vmin, np.int32)).to(cuda)
+    hi = torch.from_numpy(np.asarray(vmax, np.int32)).to(cuda)
+    got = tdev.predict_residual(up, g, lo, hi, functools.partial(
+        tbatch._device_tiles, topo, att, cuda, n * n))
+    torch.cuda.synchronize()
+    assert torch.equal(got, tdev.predict_residual_ref(up, g, lo, hi))
+    assert list(topo.dev_tiles) == [(str(cuda), None)]
+
+
+def test_predict_form_is_chosen_from_the_shape(cuda):
+    """The wrapper launches the rows kernel while ``predict_fits_smem``,
+    the tiled kernel past it for C of 1 to 4 and the direct gather only
+    for C > 4, counted by form; it asks a caller's function for the tile
+    tables only where it takes the tiled kernel."""
+    rng = np.random.default_rng(7)
+    for V, C, form in ((4096, 3, "rows"), (18040, 3, "tiled"),
+                       (300, 5, "gather"), (30000, 5, "gather")):
+        assert tdev.predict_form(V, C, 2) == form
+        q = torch.from_numpy(rng.integers(0, 4096, size=(2, V, C))
+                             .astype(np.uint16)).to(cuda)
+        T = 1000
+        g = {k: torch.from_numpy(rng.integers(0, V, size=T)
+                                 .astype(np.int32)).to(cuda)
+             for k in ("order", "next", "prev", "opp", "fallback")}
+        g["can_para"] = torch.from_numpy(rng.random(T) < 0.7).to(cuda)
+        g["has_fallback"] = torch.from_numpy(rng.random(T) < 0.6).to(cuda)
+        lo = torch.zeros(2, dtype=torch.int32, device=cuda)
+        hi = torch.full((2,), 4095, dtype=torch.int32, device=cuda)
+        before = dict(tdev.predict_residual.n_launches_by_form)
+        asked = []
+        got = tdev.predict_residual(
+            q, g, lo, hi, lambda: asked.append(1) or tdev.predict_tiles(g))
+        torch.cuda.synchronize()
+        after = tdev.predict_residual.n_launches_by_form
+        assert {k: after[k] - before[k] for k in after} == {
+            k: int(k == form) for k in after}
+        assert len(asked) == int(form == "tiled")
+        assert torch.equal(got, tdev.predict_residual_ref(q, g, lo, hi))
+
+
+@pytest.mark.parametrize("kind", ("clustered", "uniform"))
+@pytest.mark.parametrize("B,N,bins", [(512, 12288, 1 << 16),
+                                      (32, 196608, 1 << 17),
+                                      (1, 3 * (1 << 20), 1 << 17),
+                                      (3, 100_003, 1 << 16)])
+def test_wide_histogram_form_matches_twin(cuda, kind, B, N, bins):
+    """K2 past the shared-memory bins in its wide form (shared bins and
+    global atomics for the rest), on one block a row and on split rows,
+    with residual-like and uniform symbols and some out of range: equal
+    to its twin, counted under its form."""
+    rng = np.random.default_rng(B + N)
+    if kind == "clustered":
+        sym = np.abs(rng.laplace(0, 40, size=(B, N))).astype(np.int32) * 2
+        sym[:, ::211] = rng.integers(-5, bins + 5, size=sym[:, ::211].shape)
+    else:
+        sym = rng.integers(-9, bins + 9, size=(B, N), dtype=np.int32)
+    sym = torch.from_numpy(sym).to(cuda)
+    n0 = tdev.histogram.n_launches_by_form["wide"]
+    got = tdev.histogram(sym, bins)
+    torch.cuda.synchronize()
+    assert tdev.histogram.n_launches_by_form["wide"] == n0 + 1
+    assert torch.equal(got, tdev.bincount_kernel(sym, bins))

@@ -566,7 +566,7 @@ def _grid_mesh_single(n: int, seed: int = 3):
 
 def bench_huge(dev: torch.device, n: int = 1024) -> dict:
     """One n x n grid with unit normals and UVs through the resident
-    route ``encode_mesh_device`` (one upload, K1's direct-gather kernel,
+    route ``encode_mesh_device`` (one upload, K1's tiled kernel,
     K2's split row, the NORMAL and TEX_COORD chains, one readback, the
     host's C++ rANS coder) against the host plane, in turns, the best of
     3; the topology is prepared once, untimed, as a long-lived encoder

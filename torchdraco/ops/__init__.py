@@ -7,8 +7,9 @@ from .device import (
     bincount_kernel, default_hist_bins, dequantize_kernel, encode_step,
     encode_step_chunk, encode_step_from_q, encode_step_from_q_cuda,
     encode_step_stream_sharded,
-    histogram, minmax_chunk_kernel, parallelogram_predict_kernel,
-    predict_residual, predict_residual_ref, quantize_kernel,
+    histogram, histogram_form, histogram_smem_bins, minmax_chunk_kernel,
+    parallelogram_predict_kernel, predict_form, predict_residual,
+    predict_residual_ref, predict_tiles, quantize_kernel,
     quantize_rows_kernel, quantized_range_chunk_kernel, unpack12_kernel,
     unzigzag_kernel, upload_layout_of, widen, wrapped_difference_kernel,
     zigzag_kernel,
@@ -28,8 +29,10 @@ def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     for fn in KERNEL_WRAPPERS:
         fn.n_launches = 0
-    predict_residual.n_launches_by_layout = dict.fromkeys(
-        predict_residual.n_launches_by_layout, 0)
+    for fn, name in ((predict_residual, "n_launches_by_layout"),
+                     (predict_residual, "n_launches_by_form"),
+                     (histogram, "n_launches_by_form")):
+        setattr(fn, name, dict.fromkeys(getattr(fn, name), 0))
 
 
 __all__ = [
@@ -38,9 +41,11 @@ __all__ = [
     "encode_group_entropy_device", "encode_step", "encode_step_chunk",
     "encode_step_from_q", "encode_step_from_q_cuda",
     "encode_step_stream_sharded",
-    "encode_streams_device", "histogram", "minmax_chunk_kernel",
-    "normalize_tables", "parallelogram_predict_kernel", "predict_residual",
-    "predict_residual_ref", "quantize_kernel", "quantize_rows_kernel",
+    "encode_streams_device", "histogram", "histogram_form",
+    "histogram_smem_bins", "minmax_chunk_kernel", "normalize_tables",
+    "parallelogram_predict_kernel", "predict_form", "predict_residual",
+    "predict_residual_ref", "predict_tiles", "quantize_kernel",
+    "quantize_rows_kernel",
     "quantized_range_chunk_kernel", "rans_decode_lanes",
     "rans_decode_lanes_ref", "rans_encode_lanes", "rans_scan_dense",
     "rans_scan_dense_ref", "rans_words_scan", "rans_words_scan_ref",

@@ -45,6 +45,11 @@ _SIGNATURES = {
        for layout in ("u8", "u16", "i32")},
     "tdr_predict_residual_p12": [_P] * 11 + [_P, _I64, _I64, _I64, _I32,
                                             _I32, _P],
+    **{f"tdr_predict_tiled_{layout}": [_P] * 7 + [_I64, _I64, _I64, _I32,
+                                                 _I32, _I32, _I32, _P]
+       for layout in ("u8", "u16", "i32")},
+    "tdr_predict_tiled_p12": [_P] * 8 + [_I64, _I64, _I64, _I32, _I32, _I32,
+                                         _I32, _P],
     "tdr_histogram": [_P, _I64, _I64, _I32, _P, _I32, _I32, _P],
     "tdr_rans_words": [_P, _P, _P, _I64, _P, _P, _I64, _I64, _I64, _P, _P,
                        _P],

@@ -26,7 +26,7 @@
 // argument; the pack is undone where a value is read, so no unpacked copy
 // of q is written to device memory.
 //
-// Two kernels, chosen by the caller from the shape alone:
+// Three kernels, chosen by the caller from the shape alone:
 //
 // predict_rows_kernel (the rule): a block owns one mesh. It brings the
 // mesh's q row into shared memory with asynchronous 4-byte copies
@@ -55,9 +55,29 @@
 // skewed row, so the gather phase reads the same uint16 row as for the
 // uint16 layout. uint8 rows are staged as they are, 4 values a copy.
 //
+// predict_tiled_kernel (q rows past the budget: meshes of more than
+// about 18K vertices at uint16, C = 3): the traversal is cut into tiles
+// of `tile` steps (2,048 on the main path), and a block owns one (mesh,
+// tile). Gathering from device memory, a step reads 4 scattered vertices
+// (order, and next / prev / opp or the fallback), at least one 32-byte
+// L2 sector each (two with the pack, whose lo and hb are separate reads):
+// that form is bound by L2 sectors, not by q's bytes. A tile of steps
+// touches few distinct vertices (1.04-1.43 a step on grids of 64^2 to
+// 512^2, counted from the topology), so per topology the host side
+// builds tile tables (ops/device.py predict_tiles): each tile's sorted
+// distinct vertex ids (verts, delimited by off) and each step's five
+// indices as int16 positions in its tile's list (local, (5, T), -1 where
+// the step's masks leave the index unread). The block copies its tile's
+// local indices into shared memory with 16-byte asynchronous copies
+// (10 bytes a step, where the direct gather read 22 of indices and
+// masks) while it stages the tile's vertices from q, a slot of four
+// staged elements a vertex (the pack unpacked while staging, so hb is
+// read once), in sorted order, so that neighbouring threads share
+// sectors. Then it walks the tile's steps, a thread a step, reading
+// shared memory only, with the rows kernel's residual, wrap and zigzag.
+//
 // predict_gather_kernel: one thread per row gathering from device memory,
-// for q rows past the shared-memory budget (huge meshes) and for more than
-// 4 components; it unpacks the 12-bit layout at each read.
+// for more than 4 components; it unpacks the 12-bit layout at each read.
 
 #include <cstdint>
 #include <cstring>
@@ -105,6 +125,18 @@ __device__ __forceinline__ void copy4_async(void* smem, const void* gmem) {
                : "memory");
 #else
   memcpy(smem, gmem, 4);
+#endif
+}
+
+// 16 bytes from device memory to shared memory, around L1
+__device__ __forceinline__ void copy16_async(void* smem, const void* gmem) {
+#if defined(__CUDA_ARCH__)
+  const uint32_t dst = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+#else
+  memcpy(smem, gmem, 16);
 #endif
 }
 
@@ -275,6 +307,165 @@ __global__ void __launch_bounds__(ROWS_THREADS) predict_rows_kernel(
   }
 }
 
+// The tiled kernel stages a vertex's C values (C <= 4) as one slot of
+// four staged elements, read back by one vector load: 4 bytes for uint8,
+// 8 for uint16 and the unpacked 12-bit pack, 16 for int32. A step's five
+// gathers are then five shared-memory loads, where three components of
+// uint16 in a skewed row took fifteen loads and their index arithmetic:
+// the walk over the steps issues instructions, it does not wait on
+// memory (variants timed on the card: the walk cost more than the
+// staging).
+template <typename QT>
+struct Slot;
+template <>
+struct Slot<uint8_t> {
+  using V = uint32_t;
+  __device__ __forceinline__ static V pack(const int32_t* v) {
+    return (uint32_t)(v[0] & 0xFF) | (uint32_t)(v[1] & 0xFF) << 8
+           | (uint32_t)(v[2] & 0xFF) << 16 | (uint32_t)v[3] << 24;
+  }
+  __device__ __forceinline__ static int32_t at(V s, int c) {
+    return (int32_t)((s >> (8 * c)) & 0xFFu);
+  }
+};
+template <>
+struct Slot<uint16_t> {
+  using V = uint2;
+  __device__ __forceinline__ static V pack(const int32_t* v) {
+    return make_uint2((uint32_t)(v[0] & 0xFFFF) | (uint32_t)v[1] << 16,
+                      (uint32_t)(v[2] & 0xFFFF) | (uint32_t)v[3] << 16);
+  }
+  __device__ __forceinline__ static int32_t at(V s, int c) {
+    const uint32_t w = c < 2 ? s.x : s.y;
+    return (int32_t)((w >> (16 * (c & 1))) & 0xFFFFu);
+  }
+};
+template <>
+struct Slot<int32_t> {
+  using V = int4;
+  __device__ __forceinline__ static V pack(const int32_t* v) {
+    return make_int4(v[0], v[1], v[2], v[3]);
+  }
+  __device__ __forceinline__ static int32_t at(V s, int c) {
+    return c == 0 ? s.x : c == 1 ? s.y : c == 2 ? s.z : s.w;
+  }
+};
+
+// The tile's nv vertices of mesh b into their slots, by all ROWS_THREADS
+// threads, a thread a vertex: each thread loads the C values of UNROLL
+// vertices before it stores their slots, so that its loads are in flight
+// together.
+template <int C, typename Src>
+__device__ __forceinline__ void stage_slots(
+    const Src& src, typename Slot<typename Src::Smem>::V* slots,
+    const int32_t* __restrict__ verts, int nv, int64_t b, int64_t row_len,
+    int tid) {
+  using S = Slot<typename Src::Smem>;
+  constexpr int UNROLL = 4;
+  for (int v0 = tid; v0 < nv; v0 += ROWS_THREADS * UNROLL) {
+    int32_t val[UNROLL][4];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int v = v0 + u * ROWS_THREADS;
+      const int64_t base = v < nv ? (int64_t)verts[v] * C : 0;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        val[u][c] = c < C && v < nv ? src.at(b, row_len, base + c) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int v = v0 + u * ROWS_THREADS;
+      if (v < nv) slots[v] = S::pack(val[u]);
+    }
+  }
+}
+
+// Steps [s0, s0 + len) of the five rows of local indices into lt, five
+// rows of `tile`: 16-byte asynchronous copies where every row starts
+// 16-byte aligned (T a multiple of 8), the rest one by one. The caller
+// waits for the copies.
+__device__ __forceinline__ void stage_local(const int16_t* __restrict__ local,
+                                            int16_t* lt, int64_t T,
+                                            int64_t s0, int len, int tile,
+                                            int tid) {
+  int whole = 0;
+  if (T % 8 == 0 && ((uintptr_t)local & 15) == 0) {
+    whole = len / 8 * 8;
+    const int per = whole / 8;  // 16-byte pieces a row
+    for (int i = tid; i < 5 * per; i += ROWS_THREADS) {
+      const int k = i / per;
+      const int j = (i - k * per) * 8;
+      copy16_async(lt + k * tile + j, local + k * T + s0 + j);
+    }
+  }
+  const int rest = len - whole;
+  for (int i = tid; i < 5 * rest; i += ROWS_THREADS) {
+    const int k = i / rest;
+    const int j = whole + i - k * rest;
+    lt[k * tile + j] = local[k * T + s0 + j];
+  }
+}
+
+// Dynamic shared memory: [5][tile] int16 of the tile's local indices,
+// then [max_verts] slots of its vertices. Block i owns mesh i / n_tiles
+// and tile i % n_tiles; max_verts is the largest tile's vertex count,
+// which sizes the slots. The local indices are copied asynchronously
+// while the vertices are staged, so that the walk over the steps reads
+// shared memory only. A thread writes its step's C symbols itself: the
+// rows kernel's warp-staged 16-byte stores made the walk slower here
+// (variants timed on the card). Four blocks an SM: the walk then fits 64
+// registers without spilling.
+template <typename Src, int C>
+__global__ void __launch_bounds__(ROWS_THREADS, 4) predict_tiled_kernel(
+    Src src, const int32_t* __restrict__ verts,
+    const int32_t* __restrict__ off, const int16_t* __restrict__ local,
+    const int32_t* __restrict__ vmin, const int32_t* __restrict__ vmax,
+    int32_t* __restrict__ out, int64_t V, int64_t T, int32_t tile,
+    int32_t n_tiles, int32_t max_verts) {
+  using S = Slot<typename Src::Smem>;
+  using SV = typename S::V;
+  extern __shared__ uint4 smem[];
+
+  const int tid = threadIdx.x;
+  const int64_t b = blockIdx.x / n_tiles;
+  const int k = (int)(blockIdx.x - b * n_tiles);
+  int16_t* lt = (int16_t*)smem;
+  SV* slots = (SV*)(lt + 5 * tile);  // 5 * tile * 2 bytes: 16-byte aligned
+
+  const int64_t s0 = (int64_t)k * tile;
+  const int64_t s1 = s0 + tile < T ? s0 + tile : T;
+  stage_local(local, lt, T, s0, (int)(s1 - s0), tile, tid);
+  const int v0 = off[k];
+  stage_slots<C>(src, slots, verts + v0, off[k + 1] - v0, b, V * C, tid);
+  copy_async_wait();
+  const Range r = mesh_range(vmin[b], vmax[b]);
+  __syncthreads();
+#pragma unroll 1
+  for (int64_t t = s0 + tid; t < s1; t += ROWS_THREADS) {
+    const int i = (int)(t - s0);  // the step within the tile
+    // -1 marks an index the step's masks leave unread
+    const int ln = lt[tile + i];
+    const bool para = ln >= 0;
+    const int lf = para ? -1 : lt[4 * tile + i];
+    const SV o = slots[lt[i]];
+    SV pa{}, pb{}, pd{};
+    if (para) {
+      pa = slots[ln];
+      pb = slots[lt[2 * tile + i]];
+      pd = slots[lt[3 * tile + i]];
+    } else if (lf >= 0) {
+      pa = slots[lf];
+    }
+    int32_t* dst = out + (b * T + t) * C;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int32_t pred = para ? S::at(pa, c) + S::at(pb, c) - S::at(pd, c)
+                                : (lf >= 0 ? S::at(pa, c) : 0);
+      dst[c] = residual_symbol(S::at(o, c), pred, r);
+    }
+  }
+}
+
 template <typename Src>
 __global__ void predict_gather_kernel(
     Src src, const int32_t* __restrict__ order,
@@ -375,6 +566,60 @@ int launch(Src src, const void* order, const void* nxt, const void* prv,
   return (int)cudaGetLastError();
 }
 
+template <typename Src, int C>
+int launch_tiled_c(Src src, const void* verts, const void* off,
+                   const void* local, const void* vmin, const void* vmax,
+                   void* out, int64_t B, int64_t V, int64_t T, int32_t tile,
+                   int32_t n_tiles, int32_t max_verts, void* stream) {
+  using SV = typename Slot<typename Src::Smem>::V;
+  const int64_t smem = (int64_t)tile * 5 * 2 + (int64_t)max_verts * sizeof(SV);
+  auto kernel = predict_tiled_kernel<Src, C>;
+  if (smem > 48 * 1024) {  // past the default limit of dynamic shared memory
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int64_t blocks = B * n_tiles;
+  if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, ROWS_THREADS, (size_t)smem,
+           (cudaStream_t)stream>>>(
+      src, (const int32_t*)verts, (const int32_t*)off,
+      (const int16_t*)local, (const int32_t*)vmin, (const int32_t*)vmax,
+      (int32_t*)out, V, T, tile, n_tiles, max_verts);
+  return (int)cudaGetLastError();
+}
+
+// The tiled kernel for C of 1 to 4; tile is a multiple of 32.
+template <typename Src>
+int launch_tiled(Src src, const void* verts, const void* off,
+                 const void* local, const void* vmin, const void* vmax,
+                 void* out, int64_t B, int64_t V, int64_t T, int32_t C,
+                 int32_t tile, int32_t n_tiles, int32_t max_verts,
+                 void* stream) {
+  if (B * T == 0) return 0;
+  if (tile <= 0 || tile % 32 != 0) return (int)cudaErrorInvalidValue;
+  switch (C) {
+    case 1:
+      return launch_tiled_c<Src, 1>(src, verts, off, local, vmin, vmax, out,
+                                    B, V, T, tile, n_tiles, max_verts,
+                                    stream);
+    case 2:
+      return launch_tiled_c<Src, 2>(src, verts, off, local, vmin, vmax, out,
+                                    B, V, T, tile, n_tiles, max_verts,
+                                    stream);
+    case 3:
+      return launch_tiled_c<Src, 3>(src, verts, off, local, vmin, vmax, out,
+                                    B, V, T, tile, n_tiles, max_verts,
+                                    stream);
+    case 4:
+      return launch_tiled_c<Src, 4>(src, verts, off, local, vmin, vmax, out,
+                                    B, V, T, tile, n_tiles, max_verts,
+                                    stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 #define TDR_PREDICT_PLAIN(NAME, QT)                                          \
@@ -403,6 +648,33 @@ extern "C" int tdr_predict_residual_p12(
   return launch(Pack12{(const uint8_t*)lo, (const uint8_t*)hb}, order, nxt,
                 prv, opp, fb, can_para, has_fb, vmin, vmax, out, B, V, T, C,
                 rows, stream);
+}
+
+// The tiled kernel on the tables of ops/device.py predict_tiles: verts
+// (int32), off (n_tiles + 1 int32), local ((5, T) int16).
+#define TDR_PREDICT_TILED_PLAIN(NAME, QT)                                    \
+  extern "C" int NAME(const void* q, const void* verts, const void* off,     \
+                      const void* local, const void* vmin, const void* vmax, \
+                      void* out, int64_t B, int64_t V, int64_t T, int32_t C, \
+                      int32_t tile, int32_t n_tiles, int32_t max_verts,      \
+                      void* stream) {                                        \
+    return launch_tiled(Plain<QT>{(const QT*)q}, verts, off, local, vmin,    \
+                        vmax, out, B, V, T, C, tile, n_tiles, max_verts,     \
+                        stream);                                             \
+  }
+
+TDR_PREDICT_TILED_PLAIN(tdr_predict_tiled_u8, uint8_t)
+TDR_PREDICT_TILED_PLAIN(tdr_predict_tiled_u16, uint16_t)
+TDR_PREDICT_TILED_PLAIN(tdr_predict_tiled_i32, int32_t)
+
+extern "C" int tdr_predict_tiled_p12(
+    const void* lo, const void* hb, const void* verts, const void* off,
+    const void* local, const void* vmin, const void* vmax, void* out,
+    int64_t B, int64_t V, int64_t T, int32_t C, int32_t tile,
+    int32_t n_tiles, int32_t max_verts, void* stream) {
+  return launch_tiled(Pack12{(const uint8_t*)lo, (const uint8_t*)hb}, verts,
+                      off, local, vmin, vmax, out, B, V, T, C, tile,
+                      n_tiles, max_verts, stream);
 }
 
 extern "C" const char* tdr_error_string(int code) {

@@ -10,7 +10,8 @@ the path a CPU tensor takes:
 
 - ``predict_residual`` (K1, ``csrc/predict_residual.cu``) replaces the
   Pallas ``predict_matmul_pallas`` plus the residual tail of
-  ``encode_step_pallas_from_q``;
+  ``encode_step_pallas_from_q``; past the shared-memory budget of a
+  mesh's q row it reads the tile tables of ``predict_tiles``;
 - ``histogram`` (K2, ``csrc/histogram.cu``) replaces ``histogram_pallas``.
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
@@ -34,6 +35,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -41,8 +43,10 @@ from ..device import replicate, resolve_axis, shard_bounds
 from . import _build
 
 # the largest bin count whose int32 bins fit a Hopper block's 227 KB of
-# dynamic shared memory (232,448 bytes); above it K2 adds into global memory
-HIST_SMEM_MAX_BINS = 232448 // 4
+# dynamic shared memory (232,448 bytes); above it K2 takes its wide form:
+# these bins in shared memory, the rest by atomics into global memory
+SMEM_MAX_BYTES = 232448
+HIST_SMEM_MAX_BINS = SMEM_MAX_BYTES // 4
 # K2 spreads one row over several blocks when the rows alone cannot fill
 # the card: it aims at HIST_BLOCKS_PER_SM blocks on each of the device's
 # SMs, and gives a block at least HIST_MIN_SLICE symbols, and at least 4
@@ -51,8 +55,16 @@ HIST_BLOCKS_PER_SM = 2
 HIST_MIN_SLICE = 8192
 # K1's shared-memory kernel keeps a mesh's q row and a staging tile of
 # symbols in dynamic shared memory. Up to this many bytes a block, two
-# blocks fit an SM's 227 KB; a mesh past it takes the direct-gather kernel
+# blocks fit an SM's 227 KB; a mesh past it takes the tiled kernel
 PREDICT_SMEM_MAX_BYTES = 112 * 1024
+# Past it, K1 takes its tiled kernel for C of 1 to 4: the traversal cut
+# into tiles of PREDICT_TILE steps, each staging its distinct vertices
+# (``predict_tiles``). chip_smoke.py phase 17.2 times tiles of 1,024,
+# 2,048 and 4,096 steps at the real-size batches in three layouts; 2,048
+# had the least time over them (NVIDIA H100 80GB HBM3, 700 W)
+PREDICT_TILE = 2048
+# predict_tiles sorts the keys of this many steps at a time
+PREDICT_TILE_CHUNK = 1 << 16
 
 
 def zigzag_kernel(v: torch.Tensor) -> torch.Tensor:
@@ -169,11 +181,76 @@ def predict_residual_ref(q, gathers, vmin, vmax) -> torch.Tensor:
                            vmax)
 
 
+class PredictTiles(NamedTuple):
+    """K1's tile tables for one traversal (``predict_tiles``): ``verts``
+    the sorted distinct vertex ids each tile of ``tile`` steps reads, tile
+    k's at ``verts[off[k]:off[k + 1]]`` (int32); ``local`` (5, T) int16,
+    each step's order / next / prev / opp / fallback index as a position
+    in its tile's list, -1 where the step's masks leave it unread (next,
+    prev and opp where the parallelogram is not available, the fallback
+    where it is or there is none); ``max_verts`` the largest tile's
+    count, which sizes the kernel's shared memory."""
+    verts: torch.Tensor
+    off: torch.Tensor
+    local: torch.Tensor
+    tile: int
+    max_verts: int
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.verts, self.off, self.local))
+
+
+def predict_tiles(gathers: dict, tile: int = PREDICT_TILE) -> PredictTiles:
+    """The tile tables of K1's tiled kernel for the gathers of one
+    traversal (any segment of one), built with torch operations on the
+    gathers' device: a sort of the (tile, vertex) keys of every index a
+    step reads, PREDICT_TILE_CHUNK steps at a time, so that the sort's
+    buffers stay a few MB beside tables of about 18 bytes a step.
+    ``tile`` is a multiple of 32 and at most 4096, so that a tile's at
+    most 5 * tile vertices fit int16 positions."""
+    _require(tile % 32 == 0 and 0 < tile <= 4096,
+             f"tile must be a multiple of 32 in [32, 4096], got {tile}")
+    dev, T = gathers["order"].device, gathers["order"].numel()
+    n_tiles = -(-T // tile)
+    local = torch.full((5, T), -1, dtype=torch.int16, device=dev)
+    sizes = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
+    verts = []
+    span = max(tile, PREDICT_TILE_CHUNK // tile * tile)
+    for a in range(0, T, span):
+        b = min(T, a + span)
+        para = gathers["can_para"][a:b].to(torch.bool)
+        use_fb = gathers["has_fallback"][a:b].to(torch.bool) & ~para
+        idx = torch.stack([gathers[k][a:b].to(torch.int64)
+                           for k in _GATHER_INDEX])
+        read = torch.stack([torch.ones_like(para), para, para, para,
+                            use_fb])
+        step_tile = torch.arange(b - a, device=dev) // tile
+        uniq, inv = torch.unique(((step_tile << 32) | idx)[read],
+                                 sorted=True, return_inverse=True)
+        n = sizes[a // tile:-(-b // tile)]
+        n.copy_(torch.bincount(uniq >> 32, minlength=n.numel()))
+        start = torch.cumsum(n, 0) - n  # each tile's first position
+        local[:, a:b][read] = (
+            inv - start[step_tile.expand(5, -1)[read]]).to(torch.int16)
+        verts.append((uniq & 0xFFFFFFFF).to(torch.int32))
+    off = torch.zeros(n_tiles + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(sizes, 0, out=off[1:])
+    return PredictTiles(
+        verts=torch.cat(verts) if verts else torch.zeros(
+            0, dtype=torch.int32, device=dev),
+        off=off.to(torch.int32), local=local, tile=tile,
+        max_verts=int(sizes.max()) if n_tiles else 0)
+
+
 _LAYOUTS = {torch.uint8: "u8", torch.uint16: "u16", torch.int32: "i32"}
 _K1_ENTRY = {"u8": "tdr_predict_residual_u8",
              "pack12": "tdr_predict_residual_p12",
              "u16": "tdr_predict_residual_u16",
              "i32": "tdr_predict_residual_i32"}
+_K1_TILED_ENTRY = {layout: name.replace("residual", "tiled")
+                   for layout, name in _K1_ENTRY.items()}
 _GATHER_INDEX = ("order", "next", "prev", "opp", "fallback")
 _GATHER_MASK = ("can_para", "has_fallback")
 
@@ -199,8 +276,8 @@ def predict_fits_smem(V: int, C: int, itemsize: int) -> bool:
     counts), and the row and the staging tile (8 warps x 32 steps x C
     int32) fit ``PREDICT_SMEM_MAX_BYTES``. A row lies skewed, one 32-bit
     word of padding after every 32, and is rounded up to 16 bytes, as
-    ``csrc/predict_residual.cu`` ``skewed_row`` has it. Otherwise: the
-    direct-gather kernel."""
+    ``csrc/predict_residual.cu`` ``skewed_row`` has it. Otherwise
+    ``predict_form`` picks the tiled or the direct-gather kernel."""
     if not 1 <= C <= 4:
         return False
     n = V * C
@@ -208,6 +285,27 @@ def predict_fits_smem(V: int, C: int, itemsize: int) -> bool:
     row = (n + n // (128 // itemsize) * (4 // itemsize) + per16) \
         // per16 * per16 * itemsize
     return row + 8 * 32 * C * 4 <= PREDICT_SMEM_MAX_BYTES
+
+
+def predict_form(V: int, C: int, itemsize: int) -> str:
+    """K1's kernel for q rows of V * C values staged at ``itemsize`` bytes
+    (2 for the 12-bit pack): ``"rows"`` where ``predict_fits_smem``, else
+    ``"tiled"`` for C of 1 to 4, else ``"gather"``."""
+    if predict_fits_smem(V, C, itemsize):
+        return "rows"
+    return "tiled" if 1 <= C <= 4 else "gather"
+
+
+# bytes a value of each upload layout takes once K1 stages it in shared
+# memory: the 12-bit pack is unpacked to uint16
+STAGED_ITEMSIZE = {"u8": 1, "pack12": 2, "u16": 2, "i32": 4}
+
+
+def _tiled_smem_bytes(tiles: PredictTiles, C: int, itemsize: int) -> int:
+    """Dynamic shared memory of the tiled kernel, as
+    ``csrc/predict_residual.cu`` ``launch_tiled_c`` sizes it: the tile's
+    local indices and a slot of 4 staged values a vertex (C <= 4)."""
+    return 5 * 2 * tiles.tile + tiles.max_verts * 4 * itemsize
 
 
 def _check_predict_inputs(q, hb, gathers, vmin, vmax) -> None:
@@ -244,16 +342,37 @@ def _check_predict_inputs(q, hb, gathers, vmin, vmax) -> None:
             raise ValueError(f"{name} must be ({B},) int32 on {dev}")
 
 
+def _check_tiles(tiles: PredictTiles, T: int, dev, C: int,
+                 itemsize: int) -> None:
+    if not (tiles.local.shape == (5, T) and tiles.local.dtype == torch.int16
+            and tiles.verts.dtype == torch.int32
+            and tiles.off.dtype == torch.int32
+            and tiles.off.numel() == -(-T // tiles.tile) + 1
+            and all(t.device == dev and t.is_contiguous()
+                    for t in (tiles.verts, tiles.off, tiles.local))):
+        raise ValueError(f"tile tables must be predict_tiles' of these "
+                         f"{T} steps on {dev}")
+    if _tiled_smem_bytes(tiles, C, itemsize) > SMEM_MAX_BYTES:
+        raise ValueError(f"a tile of {tiles.max_verts} vertices of {C} "
+                         f"values passes the shared memory of a block; "
+                         f"build the tables with a smaller tile")
+
+
 def predict_residual(q, gathers: dict, vmin: torch.Tensor,
-                     vmax: torch.Tensor) -> torch.Tensor:
+                     vmax: torch.Tensor, tiles=None) -> torch.Tensor:
     """K1: (B, T, C) int32 zigzagged residual symbols of host-quantized
     q (B, V, C), against the host's per-mesh range vmin/vmax (B,) int32.
     q is uploaded in any layout: a uint8, uint16 or int32 tensor, or the
     12-bit pack (lo (B, V, C) uint8, hb (B, ceil(V*C/2)) uint8), which
     the kernel unpacks as it reads. Gather indices must lie in [0, V). On
-    CUDA the kernel is chosen from the shape alone (``predict_fits_smem``,
-    with the 2-byte elements of the pack's staged row). Counts its
-    launches in ``n_launches`` and, by layout, ``n_launches_by_layout``."""
+    CUDA the kernel is chosen from the shape alone (``predict_form``, with
+    the 2-byte elements of the pack's staged row); the tiled kernel reads
+    ``tiles``, the ``predict_tiles`` of these gathers or a function of no
+    arguments that returns them, called only where that kernel runs, so
+    that a caller holding a topology keeps them without deciding the form
+    (built for the call where None). Counts its
+    launches in ``n_launches`` and by layout and by kernel form in
+    ``n_launches_by_layout`` and ``n_launches_by_form``."""
     layout = upload_layout_of(q)
     lo, hb = q if layout == "pack12" else (q, None)
     if lo.device.type == "cpu":
@@ -265,24 +384,41 @@ def predict_residual(q, gathers: dict, vmin: torch.Tensor,
     if B * T * C == 0:
         return out
     lib = _build.load()
-    fn = getattr(lib, _K1_ENTRY[layout])
     parts = (lo,) if hb is None else (lo, hb)
-    staged = 2 if hb is not None else lo.element_size()
+    staged = STAGED_ITEMSIZE[layout]
+    form = predict_form(V, C, staged)
+    if form == "tiled":
+        if tiles is None:
+            tiles = predict_tiles(gathers)
+        elif callable(tiles):
+            tiles = tiles()
+        _check_tiles(tiles, T, lo.device, C, staged)
     with _launch_on(lo) as stream:
-        rc = fn(*(t.data_ptr() for t in parts),
+        if form == "tiled":
+            rc = getattr(lib, _K1_TILED_ENTRY[layout])(
+                *(t.data_ptr() for t in parts), tiles.verts.data_ptr(),
+                tiles.off.data_ptr(), tiles.local.data_ptr(),
+                vmin.data_ptr(), vmax.data_ptr(), out.data_ptr(), B, V, T, C,
+                tiles.tile, tiles.off.numel() - 1, tiles.max_verts, stream)
+        else:
+            rc = getattr(lib, _K1_ENTRY[layout])(
+                *(t.data_ptr() for t in parts),
                 *(gathers[k].data_ptr() for k in _GATHER_INDEX),
                 *(gathers[k].data_ptr() for k in _GATHER_MASK),
                 vmin.data_ptr(), vmax.data_ptr(), out.data_ptr(), B, V, T, C,
-                int(predict_fits_smem(V, C, staged)), stream)
+                int(form == "rows"), stream)
         _build.check(rc, "predict_residual")
     predict_residual.n_launches += 1
     predict_residual.n_launches_by_layout[layout] += 1
+    predict_residual.n_launches_by_form[form] += 1
     return out
 
 
 predict_residual.n_launches = 0
 predict_residual.n_launches_by_layout = dict.fromkeys(
     ("u8", "pack12", "u16", "i32"), 0)
+predict_residual.n_launches_by_form = dict.fromkeys(
+    ("rows", "tiled", "gather"), 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -305,10 +441,33 @@ def histogram_splits(B: int, N: int, num_bins: int, sms: int) -> int:
     return max(1, min(-(-fill // B), N // per_block))
 
 
+def histogram_smem_bins(N: int, num_bins: int, splits: int) -> int:
+    """The bins a K2 block keeps in shared memory, the rest going to
+    global atomics: all of them up to HIST_SMEM_MAX_BINS; a block of a
+    split row (``splits`` > 1) keeps at most a quarter of its slice's
+    symbols, since it zeroes and flushes every shared bin (never fewer
+    than ``histogram_splits`` gives the shared-memory form, which keeps 4
+    symbols a bin)."""
+    bins = min(num_bins, HIST_SMEM_MAX_BINS)
+    if splits == 1:
+        return bins
+    return max(1, min(bins, -(-N // splits) // 4))
+
+
+def histogram_form(num_bins: int) -> str:
+    """K2's form for ``num_bins`` bins: ``"smem"`` where every bin fits a
+    block's shared memory (``HIST_SMEM_MAX_BINS``), else ``"wide"``: the
+    first HIST_SMEM_MAX_BINS bins in shared memory, the rest by global
+    atomics (``histogram_smem_bins``)."""
+    return "smem" if num_bins <= HIST_SMEM_MAX_BINS else "wide"
+
+
 def histogram(symbols: torch.Tensor, num_bins: int) -> torch.Tensor:
     """K2: (B, num_bins) int32 per-row counts of (B, N) int32 symbols;
     out-of-range symbols are dropped. On CUDA a row runs on
-    ``histogram_splits`` blocks, chosen from the shape and the SM count."""
+    ``histogram_splits`` blocks, chosen from the shape and the SM count,
+    in the form ``histogram_form`` picks from the bin count. Counts its
+    launches in ``n_launches`` and by form in ``n_launches_by_form``."""
     if symbols.device.type == "cpu":
         return bincount_kernel(symbols, num_bins)
     _require(symbols.device.type == "cuda",
@@ -321,45 +480,49 @@ def histogram(symbols: torch.Tensor, num_bins: int) -> torch.Tensor:
     if B == 0:
         return torch.empty((0, num_bins), dtype=torch.int32,
                            device=symbols.device)
-    use_smem = num_bins <= HIST_SMEM_MAX_BINS
     splits = histogram_splits(B, N, num_bins,
                               _sm_count(symbols.device.index))
-    # one block a row stores its bins; split rows and global bins add
-    # into a zeroed row
-    alloc = torch.empty if use_smem and splits == 1 else torch.zeros
+    # one block a row stores its row whole; split rows add into a zeroed
+    # one
+    alloc = torch.empty if splits == 1 else torch.zeros
     out = alloc((B, num_bins), dtype=torch.int32, device=symbols.device)
     lib = _build.load()
     with _launch_on(symbols) as stream:
         rc = lib.tdr_histogram(symbols.data_ptr(), B, N, num_bins,
-                               out.data_ptr(), int(use_smem), splits, stream)
+                               out.data_ptr(),
+                               histogram_smem_bins(N, num_bins, splits),
+                               splits, stream)
         _build.check(rc, "histogram")
     histogram.n_launches += 1
+    histogram.n_launches_by_form[histogram_form(num_bins)] += 1
     return out
 
 
 histogram.n_launches = 0
+histogram.n_launches_by_form = dict.fromkeys(("smem", "wide"), 0)
 
 
 def encode_step_from_q_cuda(q: torch.Tensor, gathers: dict,
                             vmin: torch.Tensor, vmax: torch.Tensor,
-                            bits: int = 11, hist_bins: int | None = None):
+                            bits: int = 11, hist_bins: int | None = None,
+                            tiles=None):
     """The fused step through K1 and K2, the counterpart of
     ``encode_step_pallas_from_q`` (and, with q the 12-bit pack (lo, hb),
     of ``_jit_step_pallas_p12``): returns (symbols (B, T, C) int32,
     counts (B, hist_bins) int32). q is in any upload layout
-    (``predict_residual``); vmin/vmax come from the host quantize. There
-    is no depth cap: the kernels gather, they do not multiply int8
-    planes."""
+    (``predict_residual``, which takes ``tiles``); vmin/vmax come from the
+    host quantize. There is no depth cap: the kernels gather, they do not
+    multiply int8 planes."""
     if hist_bins is None:
         hist_bins = default_hist_bins(bits)
-    symbols = predict_residual(q, gathers, vmin, vmax)
+    symbols = predict_residual(q, gathers, vmin, vmax, tiles)
     counts = histogram(symbols.flatten(1), hist_bins)
     return symbols, counts
 
 
 def encode_step_stream_sharded(q, gathers: dict, vmin, vmax,
                                bits: int = 11, hist_bins: int | None = None,
-                               mesh_axis=None):
+                               mesh_axis=None, tiles: list | None = None):
     """The fused step with the traversal split over the stream axis
     ``mesh_axis`` (``resolve_axis``), the counterpart of
     ``_jit_step_stream_sharded``: every device holds the whole of q (B, V,
@@ -368,7 +531,10 @@ def encode_step_stream_sharded(q, gathers: dict, vmin, vmax,
     K1 on its segment of the traversal (``shard_bounds`` over the T
     gathers) against that global range, and K2 on the segment's symbols.
     The segments' histograms are summed on the axis's first device: the
-    psum over "stream". Returns (the segments' symbols (B, T_i, C) int32,
+    psum over "stream". A segment's K1 tile tables are its own (a
+    segment's first step need not start a tile of the whole traversal):
+    ``tiles``, one entry a shard, each as ``predict_residual`` takes it
+    (None: built for the call where the tiled kernel runs). Returns (the segments' symbols (B, T_i, C) int32,
     one tensor a shard on its device; counts (B, hist_bins) int32), which
     joined equal ``encode_step_from_q_cuda`` on one device."""
     axis = resolve_axis(mesh_axis)
@@ -377,11 +543,12 @@ def encode_step_stream_sharded(q, gathers: dict, vmin, vmax,
     gs = replicate(gathers, axis)
     T = gs[0]["order"].numel()
     symbols, counts = [], None
-    for (a, b), qd, g, lo, hi in zip(
+    for (a, b), qd, g, lo, hi, tl in zip(
             shard_bounds(T, len(axis)), replicate(q, axis), gs,
-            replicate(vmin, axis), replicate(vmax, axis)):
+            replicate(vmin, axis), replicate(vmax, axis),
+            tiles or [None] * len(axis)):
         sym = predict_residual(qd, {k: v[a:b] for k, v in g.items()}, lo,
-                               hi)
+                               hi, tl)
         cnt = histogram(sym.flatten(1), hist_bins).to(axis[0])
         counts = cnt if counts is None else counts + cnt
         symbols.append(sym)

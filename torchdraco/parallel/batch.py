@@ -37,6 +37,7 @@ carried over from ``tpudraco/parallel/batch.py``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -47,7 +48,9 @@ import numpy as np
 import torch
 
 from .. import native
-from ..device import axis_for, replicate, resolve, resolve_axis, shard_rows
+from ..device import (
+    axis_for, replicate, resolve, resolve_axis, shard_bounds, shard_rows,
+)
 from ..encode import (
     Config, _traversal_wire_id, encode_header, encode_metadata,
 )
@@ -58,8 +61,9 @@ from ..models import AttributeType, TableView
 from ..native import topo as native_topo
 from ..ops.gathers import build_parallelogram_gathers
 from ..ops.device import (
-    default_hist_bins, encode_step_chunk, encode_step_from_q_cuda,
-    encode_step_stream_sharded, minmax_chunk_kernel,
+    PredictTiles, default_hist_bins, encode_step_chunk,
+    encode_step_from_q_cuda, encode_step_stream_sharded,
+    minmax_chunk_kernel, predict_tiles,
     quantized_range_chunk_kernel, widen,
 )
 from ..ops.normals import (
@@ -86,8 +90,9 @@ PACKED_UPLOAD = os.environ.get("TORCHDRACO_PACKED_UPLOAD", "1") != "0"
 class PreparedTopology:
     """Reusable connectivity state for meshes sharing one topology: the
     connectivity byte blob, the corner tables, per-attribute traversal
-    sequences, the per-device gather tensors of the fused step, and the
-    normal rings and UV gathers of the attribute chains. ``traversal`` and
+    sequences, the per-device gather tensors of the fused step and K1's
+    tile tables, and the normal rings and UV gathers of the attribute
+    chains. ``traversal`` and
     ``single_connectivity`` are the Config's: the connectivity bytes bake
     them in."""
 
@@ -105,6 +110,12 @@ class PreparedTopology:
         self.pred_gathers: dict[int, dict] = {}
         # str(device) -> gather tensors of the position attribute
         self.dev_gathers: dict[str, dict] = {}
+        # (str(device), traversal segment or None) -> K1's tile tables
+        # (ops/device.py predict_tiles), built where its tiled kernel runs;
+        # tiles_s: the seconds their builds took, which the routes count
+        # in topology_s
+        self.dev_tiles: dict[tuple, PredictTiles] = {}
+        self.tiles_s = 0.0
         self.normal_rings: dict[int, dict] = {}  # lazy (ops/normals.py)
         self.uv_gathers: dict[int, dict] = {}    # lazy (ops/texcoords.py)
         # (kind, attribute, str(device)) -> the tensors of either
@@ -149,14 +160,16 @@ class PreparedTopology:
 
     def device_bytes(self) -> int:
         """Bytes of the tensors this topology holds on devices (the
-        position gathers and the chains' tables)."""
+        position gathers, K1's tile tables and the chains' tables)."""
         return sum(t.numel() * t.element_size()
                    for tables in (*self.dev_gathers.values(),
                                   *self.dev_chain_tables.values())
-                   for t in tables.values())
+                   for t in tables.values()) + sum(
+            t.nbytes for t in self.dev_tiles.values())
 
     def drop_device_tables(self) -> None:
         self.dev_gathers.clear()
+        self.dev_tiles.clear()
         self.dev_chain_tables.clear()
 
 
@@ -341,6 +354,23 @@ def _device_gathers(topo: PreparedTopology, pos_att, dev: torch.device,
     return topo.dev_gathers[key]
 
 
+def _device_tiles(topo: PreparedTopology, pos_att, dev: torch.device,
+                  num_values: int, span: tuple | None = None) -> PredictTiles:
+    """K1's tile tables of the topology's traversal on ``dev``, or of its
+    steps [a, b) for ``span`` (a stream shard's segment), built once, on
+    the first request; the routes hand K1 this function, which it calls
+    only where it takes its tiled kernel (``predict_residual``)."""
+    key = (str(dev), span)
+    if key not in topo.dev_tiles:
+        t0 = time.perf_counter()
+        g = _device_gathers(topo, pos_att, dev, num_values)
+        if span is not None:
+            g = {k: v[span[0]:span[1]] for k, v in g.items()}
+        topo.dev_tiles[key] = predict_tiles(g)  # ends in a host sync
+        topo.tiles_s += time.perf_counter() - t0
+    return topo.dev_tiles[key]
+
+
 def _host_quantize(batch: np.ndarray, bits: int):
     """Quantize a (B, V, C) float32 batch on the host (C++, the canonical
     formula; numpy where the native library is missing or the depth passes
@@ -422,7 +452,8 @@ def device_encode_group(positions_batch: np.ndarray, topo: PreparedTopology,
                                                 for x in (vmin, vmax))):
         symbols, counts = encode_step_from_q_cuda(
             q_dev, _device_gathers(topo, pos_att, dev, V), lo, hi,
-            bits=bits)
+            bits=bits,
+            tiles=functools.partial(_device_tiles, topo, pos_att, dev, V))
         for k, v in zip(shards, (symbols, counts, q_dev)):
             shards[k].append(v)
     return {"vmin": vmin, "vmax": vmax, "mins": mins,
@@ -664,9 +695,11 @@ class BatchEncoder:
     RESIDENT_MAX_BYTES = 40 << 30
     # The estimate's terms, above the first-call peaks that chip_smoke.py
     # phase 12.3 measures (NVIDIA H100 80GB HBM3, 700 W): positions,
-    # gathers and symbols cost RESIDENT_BYTES_PER_VERTEX (46 B a vertex on
-    # a 1024^2 grid); each TEX_COORD attribute RESIDENT_UV_BYTES_PER_VERTEX
-    # (712 B with positions on a 512^2 grid); each NORMAL attribute that
+    # gathers, K1's tile tables (about 18 B a vertex, and the buffers of
+    # their build) and symbols cost RESIDENT_BYTES_PER_VERTEX (46 B a
+    # vertex on a 1024^2 grid before the tables); each TEX_COORD
+    # attribute RESIDENT_UV_BYTES_PER_VERTEX (712 B with positions on a
+    # 512^2 grid); each NORMAL attribute that
     # the device chain takes RING_BYTES_PER_SLOT for each of its T x R ring
     # slots (int64 ring tensors at B = 1, which the chain cannot split; R
     # is the most corners on one vertex, so one fan or pole vertex sets
@@ -675,7 +708,7 @@ class BatchEncoder:
     # normals and UVs peaks at 1.10 GB, 1,051 B a vertex. The chains run
     # one after the other, so the sum overestimates: by 1.17-1.89x on
     # those four meshes.
-    RESIDENT_BYTES_PER_VERTEX = 64
+    RESIDENT_BYTES_PER_VERTEX = 96
     RESIDENT_UV_BYTES_PER_VERTEX = 768
     # encode_corpus holds this many loaded meshes at once on the device
     # planes: two DEVICE_CHUNKs, so that a topology group of DEVICE_CHUNK
@@ -882,6 +915,7 @@ class BatchEncoder:
         bits_byte = bytes([bits])
         for c0 in range(0, len(idxs), self.DEVICE_CHUNK):
             chunk = idxs[c0:c0 + self.DEVICE_CHUNK]
+            tiles_s = topo.tiles_s
             t0 = clock()
             dev_c = device_encode_group(
                 batch[c0:c0 + self.DEVICE_CHUNK], topo, pos_att0,
@@ -921,7 +955,11 @@ class BatchEncoder:
                     if a.att_type in _CHAIN_TYPES and j not in pre)
                 out[i] = encode_with_topology(meshes[i], topo, cfg=cfg,
                                               precomputed=pre)
-            t["position_s"] += t1 - t0
+            # K1's tile tables, built on the topology's first call, are
+            # topology work
+            tiles_s = topo.tiles_s - tiles_s
+            t["topology_s"] += tiles_s
+            t["position_s"] += t1 - t0 - tiles_s
             t["chains_s"] += t2 - t1
             t["h2d_mb"] += dev_c["h2d_bytes"] / 1e6
             t["assembly_s"] += clock() - t2
@@ -1004,6 +1042,7 @@ class BatchEncoder:
         key, topo = self._topo_for(mesh)
         pos_att = mesh.position_attribute()
         pos = np.ascontiguousarray(pos_att.values, np.float32)[None]
+        tiles_s = topo.tiles_s
         t1 = clock()
         dev_c = device_encode_group(pos, topo, pos_att, bits=bits,
                                     device=dev)
@@ -1032,8 +1071,9 @@ class BatchEncoder:
             mesh, topo, syms, int(dev_c["vmin"][0]), int(dev_c["vmax"][0]),
             bits, extra_pre=pre, port=port)
         self._dev_cache_touch(key, topo)
-        t.update(topology_s=t1 - t0, position_s=t2 - t1, chains_s=t3 - t2,
-                 assembly_s=clock() - t3)
+        tiles_s = topo.tiles_s - tiles_s  # K1's tables: topology work
+        t.update(topology_s=t1 - t0 + tiles_s, position_s=t2 - t1 - tiles_s,
+                 chains_s=t3 - t2, assembly_s=clock() - t3)
         return blob
 
     def encode_mesh_device_chunked(self, mesh, bits: int | None = None,
@@ -1174,13 +1214,18 @@ class BatchEncoder:
         pos_att = mesh.position_attribute()
         pos = np.ascontiguousarray(pos_att.values, np.float32)[None]
         V, C = pos.shape[1:]
+        tiles_s = topo.tiles_s
         t1 = clock()
         q, mins, delta_max, vmin, vmax = _host_quantize(pos, bits)
         vmin = np.asarray(vmin, np.int32)
         vmax = np.asarray(vmax, np.int32)
+        # a segment's own tile tables, where K1 tiles
+        T = _device_gathers(topo, pos_att, axis[0], V)["order"].numel()
         parts, counts = encode_step_stream_sharded(
             q, [_device_gathers(topo, pos_att, d, V) for d in axis], vmin,
-            vmax, bits=bits, mesh_axis=axis)
+            vmax, bits=bits, mesh_axis=axis,
+            tiles=[functools.partial(_device_tiles, topo, pos_att, d, V, span)
+                   for d, span in zip(axis, shard_bounds(T, len(axis)))])
         if bits + 1 <= 16:  # zigzag symbols < 2^(bits+1): half the bytes
             parts = [p.to(torch.uint16) for p in parts]
         symbols = np.concatenate([p[0].cpu().numpy() for p in parts])
@@ -1195,7 +1240,9 @@ class BatchEncoder:
         blob = self._assemble_precomputed(mesh, topo, symbols, int(vmin[0]),
                                           int(vmax[0]), bits, port=port)
         self._dev_cache_touch(key, topo)
-        self.timings = {"topology_s": t1 - t0, "position_s": t2 - t1,
+        tiles_s = topo.tiles_s - tiles_s  # K1's tables: topology work
+        self.timings = {"topology_s": t1 - t0 + tiles_s,
+                        "position_s": t2 - t1 - tiles_s,
                         "assembly_s": clock() - t2}
         return blob
 
