@@ -11,11 +11,14 @@ the fused step's symbols, and BatchDecoder(entropy="device") over the 512
 blobs, checked against the port's own host decoder. Then the default
 attribute set at the same width (phases 8-11): the card's float32 division,
 product-then-sum and square root against numpy bit for bit; the NORMAL and
-TEX_COORD chains (torch operations, no kernel of their own) on the card
-against the same functions on the CPU; encode_meshes_device over 512 meshes
-with positions, normals and UVs against the host plane; and the phased
-decode (normals="device") over those blobs against decode(), in turns with
-normals="host". Then one large mesh (phase 12): a 1024 x 1024 grid through
+TEX_COORD chains' kernels (C1 normal encode, C2 normal decode, C3 UV
+encode) on the card against their plain versions on the card and on the
+CPU, on every output, at the batch's shape, at deep depths, on a ring of
+80 slots and on a batch with risky UV meshes, each timed beside its plain
+version; encode_meshes_device over 512 meshes with positions, normals and
+UVs against the host plane (C1 and C3 launched once); and the phased
+decode (normals="device", C2 launched) over those blobs against decode(),
+in turns with normals="host". Then one large mesh (phase 12): a 1024 x 1024 grid through
 the single-mesh routes, encode_mesh_device with positions, normals and UVs
 and encode_mesh_device_chunked with positions, each against encode(), the
 resident route's peak card memory on that grid and on grids with UVs and
@@ -76,8 +79,9 @@ its twin, both times, its bound (bytes moved once over 3.35 TB/s, or
 integer operations over 67 Tops/s, whichever is larger) and, for the
 histogram, the time of the one PyTorch call that computes the same
 function; the lines before that hold phase 13's walls, sweep and knobs
-(``corpus``), the three chains' device times, launches, peak memory and
-bounds and the end-to-end times of phases 10-11 (``chains``), phase
+(``corpus``), the three chain kernels' and their plain versions' device
+times, launches, peak memory, bounds and shares and the end-to-end times
+of phases 10-11 (``chains``), phase
 12's (``single_mesh``) and phase 14's walls, launches and checks
 (``sharded``), phase 15's (``narrow``) and phase 17's (``real_size``),
 then phase 16's bench lines,
@@ -122,6 +126,10 @@ HUGE_GRID, HUGE_CHUNK = 1024, 1 << 15
 # tessellation's fan cap), which widens every normal ring to FAN slots:
 # the widest ring the device chain takes at -qp 11 is 85
 FAN_GRID, FAN = 512, 80
+# phase 9 holds C1-C3 to their plain versions also on FAN_BATCH grids of
+# (FAN + 1)^2 with a fan vertex of valence FAN, and on RISKY_BATCH meshes
+# of the batch with positions and UVs past the UV chain's int64 headroom
+FAN_BATCH, RISKY_BATCH = 16, 32
 # phase 13: the corpus on disk. The batch cell's BATCH meshes with normals
 # and UVs (GLB), CORPUS_GROUPS topologies of CORPUS_GROUP_N meshes of
 # CORPUS_GRID x CORPUS_GRID (PLY), CORPUS_SINGLES single meshes of as many
@@ -948,156 +956,52 @@ def main() -> int:
           f"scales, "
           f"powers of two, integers to 2^29): mismatches {float_errs}")
 
-    # ---- phase 9: each chain on the card against the same chain on the CPU
+    def traced(fn) -> dict:
+        """One call of ``fn`` under a device trace: device events (kernel
+        launches and copies), their busy time, and the peak of allocated
+        device memory above what was held before. The tracer loses a
+        short window's events at times: a trace under a second that
+        caught none is taken again over 2, 4 ... 32 calls, each call's
+        result dropped before the next, and its counts and times are a
+        call's (``traced_calls`` says how many there were; None where
+        every try lost every event)."""
+        def calls_of(n):
+            for _ in range(n):
+                fn()
+        fn()
+        sync()
+        for calls in (1, 2, 4, 8, 16, 32):
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _, wall = wall_s(lambda: calls_of(calls))
+            peak = torch.cuda.max_memory_allocated() - base
+            spans = [(e.time_range.start, e.time_range.end, e.name)
+                     for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+            if spans or wall > 1.0:
+                break
+        busy = _busy_us(spans)
+        copies = sum(1 for _, _, name in spans
+                     if "memcpy" in name.lower() or "memset" in name.lower())
+        return {"wall_ms": wall * 1e3 / calls, "busy_ms": busy / 1e3 / calls,
+                "launches": (len(spans) - copies) / calls if spans else None,
+                "copies": copies / calls, "peak_bytes": int(peak),
+                "traced_calls": calls if spans else None,
+                "idle_share": (1 - busy / 1e3 / (wall * 1e3)) if spans
+                else None}
+
+    # ---- phase 9: C1-C3 against their plain versions, on the card and CPU
     normals3, uvs3 = torchdraco.make_normal_uv_batch(positions, GRID,
                                                      SEED + 2)
     meshes3 = torchdraco.build_meshes(positions, faces, normals3, uvs3)
     topo3 = tbatch.PreparedTopology(meshes3[0])
-    m3 = meshes3[0]
-    n_pts = m3.position_attribute().num_points
-    uo_pos_np = m3.position_attribute().unique_indices().astype(np.int64)
-    uo_nrm_np = m3.attributes[1].unique_indices().astype(np.int64)
-    uo_uv_np = m3.attributes[2].unique_indices().astype(np.int64)
-    rings_np = topo3.rings_for(1)
-    uvg_np = topo3.uv_gathers_for(2, n_pts)
-    ring_keys = ("tip_pt", "next_pt", "prev_pt", "mask")
-    T3, R3 = rings_np["next_pt"].shape
-
-    def chain_inputs(q_pos_np, nrm_np, q_uv_np, where):
-        """The three chains' arguments as tensors on ``where``."""
-        def up(x):
-            return torch.from_numpy(np.ascontiguousarray(x)).to(where)
-        rings = tnorm.rings_to_torch(rings_np, where)
-        rows = tnorm.rings_to_torch(rings_np, where, rows=uo_pos_np)
-        return {"q_pos": up(q_pos_np), "nrm": up(nrm_np), "q_uv": up(q_uv_np),
-                "uo_pos": up(uo_pos_np), "uo_nrm": up(uo_nrm_np),
-                "uo_uv": up(uo_uv_np),
-                "rings": [rings[k] for k in ring_keys],
-                "rows": [rows[k] for k in ring_keys],
-                "uvg": ttex.uv_gathers_to_torch(uvg_np, where)}
-
-    def run_chains(a, qn, where):
-        """(normal symbols, flips, decoded normals, the UV chain's six)."""
-        sym, flips = tnorm.normal_encode_chain(
-            a["q_pos"], a["nrm"], *a["rings"], a["uo_pos"], a["uo_nrm"],
-            bits=qn)
-        back = tnorm.normal_decode_chain(a["q_pos"], sym, flips, *a["rows"],
-                                         bits=qn)
-        uv = ttex.uv_encode_chain(a["q_pos"], a["q_uv"], a["uvg"],
-                                  a["uo_pos"], a["uo_uv"], device=where)
-        return sym, flips, back, uv
-
-    def chains_equal(got, want, what):
-        for name, g, w in zip(("normal symbols", "normal flips",
-                               "decoded normals"), got[:3], want[:3]):
-            _check(g.dtype == w.dtype and torch.equal(g.cpu(), w),
-                   f"{name} on the card differ from the CPU's ({what})")
-        for name, g, w in zip(("symbols", "vmin", "vmax", "orient_vals",
-                               "orient_flags", "risky"), got[3], want[3]):
-            _check(g.dtype == w.dtype and np.array_equal(g, w),
-                   f"UV {name} on the card differ from the CPU's ({what})")
-
-    q_uv_full = tbatch._host_quantize(uvs3, UV_BITS)[0]
-    full_dev = chain_inputs(q_up, normals3, q_uv_full, dev)
-    got_full = run_chains(full_dev, NORMAL_BITS, dev)
-    sync()
-    want_full, cpu_chains_s = wall_s(lambda: run_chains(
-        chain_inputs(q_up, normals3, q_uv_full, "cpu"), NORMAL_BITS, "cpu"))
-    chains_equal(got_full, want_full, "full shape")
-    # the decode chain gives the quantized normals back, but for the
-    # corner (max, max), which the transform folds onto the corners near 0
-    q_n = tnorm.oct_quantize_faithful_device(full_dev["nrm"], NORMAL_BITS)
-    orig_n = q_n[:, full_dev["uo_nrm"][full_dev["rings"][0]], :]
-    folded = (orig_n == (1 << NORMAL_BITS) - 1).all(-1)
-    back_err = ((got_full[2] != orig_n).any(-1) & ~folded)
-    _check(not back_err.any().item() and folded.sum().item() < 64,
-           "decode chain does not invert encode")
-    _check(not got_full[3][5].any(), "a UV row of the slice is risky")
-    # deep depths on a smaller batch: ring sums past 2^31, 16-bit normals
-    deep_pos = (positions[:DEEP_BATCH] * np.float32(1e4)).astype(np.float32)
-    q_deep = tbatch.quantize_positions_host(deep_pos, DEEP_QP)[0]
-    q_uv_deep = tbatch._host_quantize(uvs3[:DEEP_BATCH], DEEP_QT)[0]
-    _check(int(np.abs(np.diff(q_deep.astype(np.int64), axis=1)).max()) ** 2
-           > 1 << 31, "the deep case does not pass int32")
-    deep_args = (q_deep, normals3[:DEEP_BATCH], q_uv_deep)
-    got_deep = run_chains(chain_inputs(*deep_args, dev), DEEP_QN, dev)
-    want_deep = run_chains(chain_inputs(*deep_args, "cpu"), DEEP_QN, "cpu")
-    chains_equal(got_deep, want_deep, f"-qp {DEEP_QP} -qn {DEEP_QN}")
-    deep_risky = int(got_deep[3][5].sum())
-    del want_full, want_deep, got_deep
-
-    def traced(fn) -> dict:
-        """One call of ``fn`` under a device trace: device events (kernel
-        launches and copies), their busy time, and the peak of allocated
-        device memory above what was held before."""
-        fn()
-        sync()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            _, wall = wall_s(fn)
-        peak = torch.cuda.max_memory_allocated() - base
-        spans = [(e.time_range.start, e.time_range.end, e.name)
-                 for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = _busy_us(spans)
-        copies = sum(1 for _, _, name in spans
-                     if "memcpy" in name.lower() or "memset" in name.lower())
-        return {"wall_ms": wall * 1e3, "busy_ms": busy / 1e3,
-                "launches": len(spans) - copies, "copies": copies,
-                "peak_bytes": int(peak),
-                "idle_share": (1 - busy / 1e3 / (wall * 1e3)) if spans
-                else None}
-
-    a = full_dev
-    sym_n, flips_n = got_full[0], got_full[1]
-    uv_i64 = [a["q_pos"].to(torch.int64), a["q_uv"].to(torch.int64)]
-    chain_fns = {
-        "normal_encode_chain": lambda: tnorm.normal_encode_chain(
-            a["q_pos"], a["nrm"], *a["rings"], a["uo_pos"], a["uo_nrm"],
-            bits=NORMAL_BITS),
-        "normal_decode_chain": lambda: tnorm.normal_decode_chain(
-            a["q_pos"], sym_n, flips_n, *a["rows"], bits=NORMAL_BITS),
-        "uv_encode_chain": lambda: ttex._uv_chain_impl(
-            *uv_i64, a["uo_pos"], a["uo_uv"],
-            *(a["uvg"][k] for k in ttex._UV_INDEX_KEYS
-              + ttex._UV_MASK_KEYS))}
-    ring_bytes = nbytes(*a["rings"])
-    uv_sym_bytes = 4 * BATCH * T3 * 2   # the wire's uint32
-    moved = {
-        "normal_encode_chain": nbytes(a["q_pos"], a["nrm"], a["uo_pos"],
-                                      a["uo_nrm"], sym_n, flips_n)
-        + ring_bytes,
-        "normal_decode_chain": nbytes(a["q_pos"], sym_n, flips_n,
-                                      got_full[2]) + ring_bytes,
-        "uv_encode_chain": nbytes(a["q_pos"], a["q_uv"], a["uo_pos"],
-                                  a["uo_uv"], *a["uvg"].values())
-        + uv_sym_bytes + BATCH * (4 + 4 + 2 * T3 + 1)}
-    # integer and float operations a step, counted from the sources: 45 a
-    # ring slot (two edges, the cross product, the masked sum) and 250 for
-    # the rest of a normal step; the UV step's 96 square-root rounds of 8
-    chain_ops = {"normal_encode_chain": BATCH * T3 * (45 * R3 + 250),
-                 "normal_decode_chain": BATCH * T3 * (45 * R3 + 250),
-                 "uv_encode_chain": BATCH * T3 * (96 * 8 + 250)}
-    chains = {"card": smi_line,
-              "shape": {"meshes": BATCH, "steps": T3, "ring": R3,
-                        "bits": [BITS, NORMAL_BITS, UV_BITS]}}
-    for name, fn in chain_fns.items():
-        chains[name] = {"ms": cuda_ms(fn, 3), **traced(fn),
-                        **bound(moved[name], chain_ops[name])}
-        del chains[name]["idle_share"]
-    chains["cpu_all_three_s"] = cpu_chains_s
-    report["phase9"] = {"deep_risky_meshes": deep_risky}
-    print(f"phase 9: normal_encode_chain, normal_decode_chain and "
-          f"uv_encode_chain on the card equal the same functions on the CPU "
-          f"at ({BATCH}, {T3}, ring {R3}) -qp {BITS} -qn {NORMAL_BITS} -qt "
-          f"{UV_BITS} (the CPU's three took {cpu_chains_s:.1f} s) and at "
-          f"-qp {DEEP_QP} -qn {DEEP_QN} -qt {DEEP_QT} on {DEEP_BATCH} meshes "
-          f"({deep_risky} risky there); the decode chain gives the "
-          f"quantized normals back; device ms / launches / peak MB / bound "
-          f"ms "
-          f"{ {n: (round(c['ms'], 3), c['launches'], round(c['peak_bytes'] / 1e6), round(c['bound_ms'], 4)) for n, c in chains.items() if isinstance(c, dict) and 'ms' in c} }")
-    del full_dev, got_full, a, sym_n, flips_n, uv_i64, chain_fns, q_n, back_err, orig_n
+    T3 = len(topo3.rings_for(1)["tip_pt"])
+    chains, k9 = _phase9(torch, np, torchdraco, native, tdev, tnorm, ttex,
+                         tbatch, dev, sync, wall_s, cuda_ms, kernel_only_ms,
+                         max_abs_err, nbytes, bound, traced, smi_line,
+                         positions, q_up, normals3, uvs3, meshes3, topo3)
+    errs.update({name: e["max_abs_err"] for name, e in k9.items()})
     torch.cuda.empty_cache()
 
     # ---- phase 10: encode_meshes_device, positions + normals + UVs -------
@@ -1106,11 +1010,12 @@ def main() -> int:
     reset_launch_counts()
     blobs3, enc3_first_s = wall_s(lambda: enc3.encode_meshes_device(meshes3))
     launches10 = {fn.__name__: fn.n_launches for fn in
-                  (tdev.predict_residual, tdev.histogram, trl.rans_words_scan)}
+                  (tdev.predict_residual, tdev.histogram, trl.rans_words_scan,
+                   tnorm.normal_encode_cuda, ttex.uv_encode_cuda)}
     report["launches_phase10"] = launches10
     _check(all(n == 1 for n in launches10.values()),
-           f"one chunk of {BATCH} meshes launches K1, K2 and K3 once each: "
-           f"{launches10}")
+           f"one chunk of {BATCH} meshes launches K1, K2, K3, C1 and C3 once "
+           f"each: {launches10}")
     _check(enc3.n_host_attributes == 0,
            f"{enc3.n_host_attributes} attributes went to the host encoder")
     host_blobs3, host3_s = wall_s(lambda: [
@@ -1183,8 +1088,10 @@ def main() -> int:
     reset_launch_counts()
     dec3, dec3_first_s = wall_s(lambda: bd3.decode_blobs_shared_topology(
         blobs3, entropy="device", normals="device"))
-    launches11 = {"rans_decode_lanes": trl.rans_decode_lanes.n_launches}
-    _check(launches11["rans_decode_lanes"] > 0 and "normals_s" in bd3.timings,
+    launches11 = {"rans_decode_lanes": trl.rans_decode_lanes.n_launches,
+                  "normal_decode_cuda": tnorm.normal_decode_cuda.n_launches}
+    _check(all(n > 0 for n in launches11.values())
+           and "normals_s" in bd3.timings,
            f"the phased decode did not reach the card: {launches11}, "
            f"{bd3.timings}")
     _check(bd3.n_host_blobs == 0, f"{bd3.n_host_blobs} blobs went to the host")
@@ -1330,6 +1237,16 @@ def main() -> int:
                      "bound_by", "library_ms", "bytes", "share_of_bound",
                      "kernel_only_ms", "shape")}}
                 for name, e in k12.items()]
+    # C1 and C3 launched by phase 10's encode, C2 by phase 11's decode
+    kernels += [{"name": name, "route": "cuda", "source": src + e["file"],
+                 "replaces": e["replaces"],
+                 "launches": {**launches10, **launches11}[name],
+                 **{key: e[key] for key in (
+                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                     "library_ms", "bytes", "share_of_bound",
+                     "kernel_only_ms", "shape")},
+                 "launches_sharded": sharded["launches"].get(name, 0)}
+                for name, e in k9.items()]
     kernels[0]["layout"] = "u16"
     kernels += [{"name": name, "route": "cuda", "source": src + e["file"],
                  **{key: e[key] for key in (
@@ -1355,8 +1272,9 @@ def main() -> int:
            f"a long-row, narrow-layout or real-size kernel: {k12} {k15} "
            f"{k17}")
     _check(all(e["launches"] > 0 for e in kernels if e["name"] in (
-        "predict_residual", "histogram", "rans_words_scan")),
-           "a kernel of the main path or of the -qp 15 path never launched")
+        "predict_residual", "histogram", "rans_words_scan",
+        *k9)), "a kernel of the main path, of the attribute chains or of "
+        "the -qp 15 path never launched")
     print("chip_smoke details: " + json.dumps({**report, "chains": chains,
                                                "single_mesh": single,
                                                "corpus": corpus,
@@ -1380,6 +1298,299 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _phase9(torch, np, torchdraco, native, tdev, tnorm, ttex, tbatch, dev,
+            sync, wall_s, cuda_ms, kernel_only_ms, max_abs_err, nbytes,
+            bound, traced, smi_line, positions, q_up, normals3, uvs3,
+            meshes3, topo3):
+    """C1 (normal encode), C2 (normal decode) and C3 (UV encode) on the
+    card through the public chains, against their plain versions called
+    by name on the card and against the CPU's, on every output, at the
+    batch's full shape, at the deep depths, on a ring of FAN slots and on
+    a batch with risky UV meshes; then each kernel timed beside its plain
+    version at the full shape (CUDA events, a device trace's launches,
+    busy time and peak memory, the kernel alone) with its bound. Returns
+    (the ``chains`` record, {kernel line name: entry})."""
+    ring_keys = ("tip_pt", "next_pt", "prev_pt", "mask")
+    uv_names = ("symbols", "vmin", "vmax", "orient_vals", "orient_flags",
+                "risky")
+
+    def chain_case(mesh0, topo, q_pos_np, nrm_np, q_uv_np, where):
+        """The chains' arguments for meshes of ``mesh0``'s topology on
+        ``where``: q as uploaded and widened (``q32``), as the callers
+        hand it to C1 and C3."""
+        def up(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(where)
+        pa = mesh0.position_attribute()
+        uo_pos = pa.unique_indices().astype(np.int64)
+        rings_np = topo.rings_for(1)
+        rings = tnorm.rings_to_torch(rings_np, where)
+        rows = tnorm.rings_to_torch(rings_np, where, rows=uo_pos)
+        q, q_uv = up(q_pos_np), up(q_uv_np)
+        return {"q_pos": q, "q32": tdev.int32_values(q), "nrm": up(nrm_np),
+                "q_uv": q_uv, "q_uv32": tdev.int32_values(q_uv),
+                "uo_pos": up(uo_pos),
+                "uo_nrm": up(mesh0.attributes[1].unique_indices()
+                             .astype(np.int64)),
+                "uo_uv": up(mesh0.attributes[2].unique_indices()
+                            .astype(np.int64)),
+                "rings": [rings[k] for k in ring_keys],
+                "rows": [rows[k] for k in ring_keys],
+                "uvg": ttex.uv_gathers_to_torch(
+                    topo.uv_gathers_for(2, pa.num_points), where)}
+
+    def run_chains(a, qn, plain):
+        """(normal symbols, flips, decoded normals, the UV chain's six),
+        through the public chains (the kernels on the card) or the plain
+        versions by name."""
+        enc = (tnorm.normal_encode_chain_ref if plain
+               else tnorm.normal_encode_chain)
+        dec = (tnorm.normal_decode_chain_ref if plain
+               else tnorm.normal_decode_chain)
+        uv = ttex.uv_encode_chain_ref if plain else ttex.uv_encode_chain
+        sym, flips = enc(a["q_pos"], a["nrm"], *a["rings"], a["uo_pos"],
+                         a["uo_nrm"], bits=qn)
+        back = dec(a["q_pos"], sym, flips, *a["rows"], bits=qn)
+        uvo = uv(a["q_pos"], a["q_uv"], a["uvg"], a["uo_pos"], a["uo_uv"],
+                 device=a["q_pos"].device)
+        sync()
+        return sym, flips, back, uvo
+
+    errs = dict.fromkeys(("normal_encode_cuda", "normal_decode_cuda",
+                          "uv_encode_cuda"), 0)
+
+    def chains_equal(got, want, what):
+        """Equal on every output; the largest differences go to errs."""
+        for name, g, w in zip(("normal symbols", "normal flips",
+                               "decoded normals"), got[:3], want[:3]):
+            _check(g.dtype == w.dtype and g.shape == w.shape,
+                   f"{name} ({what}): {g.dtype} {tuple(g.shape)} against "
+                   f"{w.dtype} {tuple(w.shape)}")
+            key = "normal_decode_cuda" if name == "decoded normals" \
+                else "normal_encode_cuda"
+            errs[key] = max(errs[key], max_abs_err(g.cpu(), w.cpu()))
+            _check(torch.equal(g.cpu(), w.cpu()),
+                   f"{name} differ ({what})")
+        for name, g, w in zip(uv_names, got[3], want[3]):
+            _check(g.dtype == w.dtype and g.shape == w.shape,
+                   f"UV {name} ({what}): {g.dtype} {g.shape} against "
+                   f"{w.dtype} {w.shape}")
+            errs["uv_encode_cuda"] = max(errs["uv_encode_cuda"], max_abs_err(
+                torch.from_numpy(g.astype(np.int64)),
+                torch.from_numpy(w.astype(np.int64))))
+            _check(np.array_equal(g, w), f"UV {name} differ ({what})")
+
+    # the four cases: the batch at -qp 11 -qn 8 -qt 10; the deep depths
+    # (ring sums past 2^31, 16-bit normals); a fan ring; risky UV meshes
+    q_uv_full = tbatch._host_quantize(uvs3, UV_BITS)[0]
+    deep_pos = (positions[:DEEP_BATCH] * np.float32(1e4)).astype(np.float32)
+    q_deep = tbatch.quantize_positions_host(deep_pos, DEEP_QP)[0]
+    _check(int(np.abs(np.diff(q_deep.astype(np.int64), axis=1)).max()) ** 2
+           > 1 << 31, "the deep case does not pass int32")
+    n_fan = FAN + 1
+    posf, facesf = torchdraco.make_mesh_batch(FAN_BATCH, n_fan, SEED + 9,
+                                              fan=FAN)
+    nrmf, uvf = torchdraco.make_normal_uv_batch(posf, n_fan, SEED + 10)
+    meshesf = torchdraco.build_meshes(posf, facesf, nrmf, uvf)
+    topof = tbatch.PreparedTopology(meshesf[0])
+    _check(topof.rings_for(1)["next_pt"].shape[1] == FAN,
+           "the fan case's rings are not FAN wide")
+    rng = np.random.default_rng(SEED + 9)
+    q_risky = q_up[:RISKY_BATCH].astype(np.int32)
+    q_uv_risky = q_uv_full[:RISKY_BATCH].astype(np.int32)
+    q_risky[1] = rng.integers(0, (1 << 31) - 1, size=q_risky[1].shape)
+    q_risky[3] = rng.integers(0, 1 << 19, size=q_risky[3].shape)
+    q_uv_risky[3] = rng.integers(0, 1 << 30, size=q_uv_risky[3].shape)
+    q_risky[5] = rng.integers(0, 1 << 21, size=q_risky[5].shape)
+    cases = {
+        "full": (meshes3[0], topo3, q_up, normals3, q_uv_full, NORMAL_BITS),
+        "deep": (meshes3[0], topo3, q_deep, normals3[:DEEP_BATCH],
+                 tbatch._host_quantize(uvs3[:DEEP_BATCH], DEEP_QT)[0],
+                 DEEP_QN),
+        "fan": (meshesf[0], topof,
+                native.quantize_batch(posf, BITS)[0], nrmf,
+                tbatch._host_quantize(uvf, UV_BITS)[0], NORMAL_BITS),
+        "risky": (meshes3[0], topo3, q_risky, normals3[:RISKY_BATCH],
+                  q_uv_risky, NORMAL_BITS)}
+    rec = {"card": smi_line, "cases": {}}
+    full = None
+    for what, (m0, topo, qp_np, nrm_np, quv_np, qn) in cases.items():
+        a = chain_case(m0, topo, qp_np, nrm_np, quv_np, dev)
+        got = run_chains(a, qn, plain=False)
+        plain = run_chains(a, qn, plain=True)
+        chains_equal(got, plain, f"{what}: the kernels against the plain "
+                                 f"versions on the card")
+        cpu, cpu_s = wall_s(lambda: run_chains(
+            chain_case(m0, topo, qp_np, nrm_np, quv_np, "cpu"), qn,
+            plain=True))
+        chains_equal(got, cpu, f"{what}: the kernels against the CPU")
+        # C2 on symbols and flips of its own, beside the encoder's
+        rng_d = np.random.default_rng(qn)
+        sym_r = torch.from_numpy(rng_d.integers(
+            0, (1 << qn) - 1, size=tuple(got[0].shape)).astype(np.int32)
+        ).to(dev)
+        flips_r = torch.from_numpy(rng_d.random(tuple(got[1].shape)) < 0.5
+                                   ).to(dev)
+        dk = tnorm.normal_decode_chain(a["q32"], sym_r, flips_r, *a["rows"],
+                                       bits=qn)
+        dp = tnorm.normal_decode_chain_ref(a["q_pos"], sym_r, flips_r,
+                                           *a["rows"], bits=qn)
+        errs["normal_decode_cuda"] = max(errs["normal_decode_cuda"],
+                                         max_abs_err(dk, dp))
+        _check(torch.equal(dk, dp), f"{what}: C2 differs from its plain "
+               f"version on random symbols and flips")
+        T, R = topo.rings_for(1)["next_pt"].shape
+        rec["cases"][what] = {
+            "meshes": int(qp_np.shape[0]), "steps": int(T), "ring": int(R),
+            "normal_bits": qn, "cpu_plain_s": cpu_s,
+            "risky_meshes": np.flatnonzero(got[3][5]).tolist(),
+            "geo_steps": int(got[3][4].sum())}
+        if what == "full":
+            full = (a, got)
+        else:
+            del a
+        del got, plain, cpu
+    a, got_full = full
+    # the decode chain gives the quantized normals back, but for the
+    # corner (max, max), which the transform folds onto the corners near 0
+    q_n = tnorm.oct_quantize_faithful_device(a["nrm"], NORMAL_BITS)
+    orig_n = q_n[:, a["uo_nrm"][a["rings"][0]], :]
+    folded = (orig_n == (1 << NORMAL_BITS) - 1).all(-1)
+    back_err = ((got_full[2] != orig_n).any(-1) & ~folded)
+    _check(not back_err.any().item() and folded.sum().item() < 64,
+           "decode chain does not invert encode")
+    _check(not got_full[3][5].any(), "a UV row of the slice is risky")
+    flagged = rec["cases"]["risky"]["risky_meshes"]
+    _check({1, 3} <= set(flagged) and 0 not in flagged,
+           f"the risky batch flagged meshes {flagged}, not 1 and 3")
+
+    # timing at the full shape: each kernel's wrapper and the chain call
+    # as the callers make it, beside its plain version
+    sym_n, flips_n = got_full[0], got_full[1]
+    uv_i64 = [a["q_pos"].to(torch.int64), a["q_uv"].to(torch.int64)]
+    g_list = [a["uvg"][k] for k in ttex._UV_INDEX_KEYS + ttex._UV_MASK_KEYS]
+    kernel_fns = {
+        "normal_encode_cuda": lambda: tnorm.normal_encode_cuda(
+            a["q32"], a["nrm"], *a["rings"], a["uo_pos"], a["uo_nrm"],
+            bits=NORMAL_BITS),
+        "normal_decode_cuda": lambda: tnorm.normal_decode_cuda(
+            a["q32"], sym_n, flips_n, *a["rows"], bits=NORMAL_BITS),
+        "uv_encode_cuda": lambda: ttex.uv_encode_cuda(
+            a["q32"], a["q_uv32"], a["uvg"], a["uo_pos"], a["uo_uv"])}
+    chain_calls = {
+        "normal_encode_cuda": lambda: tnorm.normal_encode_chain(
+            a["q32"], a["nrm"], *a["rings"], a["uo_pos"], a["uo_nrm"],
+            bits=NORMAL_BITS),
+        "normal_decode_cuda": lambda: tnorm.normal_decode_chain(
+            a["q32"], sym_n, flips_n, *a["rows"], bits=NORMAL_BITS),
+        "uv_encode_cuda": lambda: ttex.uv_encode_chain(
+            a["q32"], a["q_uv32"], a["uvg"], a["uo_pos"], a["uo_uv"],
+            device=dev)}
+    plain_fns = {
+        "normal_encode_cuda": lambda: tnorm.normal_encode_chain_ref(
+            a["q_pos"], a["nrm"], *a["rings"], a["uo_pos"], a["uo_nrm"],
+            bits=NORMAL_BITS),
+        "normal_decode_cuda": lambda: tnorm.normal_decode_chain_ref(
+            a["q_pos"], sym_n, flips_n, *a["rows"], bits=NORMAL_BITS),
+        "uv_encode_cuda": lambda: ttex._uv_chain_impl(
+            *uv_i64, a["uo_pos"], a["uo_uv"], *g_list)}
+    device_kernels = {"normal_encode_cuda": ("normal_encode_kernel",),
+                      "normal_decode_cuda": ("normal_decode_kernel",),
+                      "uv_encode_cuda": ("uv_range_kernel",
+                                         "uv_step_kernel")}
+    B, T = sym_n.shape[0], sym_n.shape[1]
+    R = a["rings"][1].shape[1]
+    tables = nbytes(*a["rings"])
+    moved = {
+        "normal_encode_cuda": nbytes(a["q32"], a["nrm"], a["uo_pos"],
+                                     a["uo_nrm"], sym_n, flips_n) + tables,
+        "normal_decode_cuda": nbytes(a["q32"], sym_n, flips_n,
+                                     got_full[2]) + tables,
+        "uv_encode_cuda": nbytes(a["q32"], a["q_uv32"], a["uo_pos"],
+                                 a["uo_uv"], *g_list)
+        + B * T * (2 * 4 + 2) + B * (4 + 4 + 1)}
+    # operations counted from the sources, for this run's data: 45 a ring
+    # slot the mask keeps (two edges, the cross product, the sum) and 250
+    # for the rest of a normal step; 250 a UV step, and about 36 rounds of
+    # 8 where the integer square root runs (the steps the geometric
+    # predictor takes)
+    valid_slots = int(a["rings"][3].sum())
+    geo_steps = rec["cases"]["full"]["geo_steps"]
+    ops = {"normal_encode_cuda": B * (45 * valid_slots + 250 * T),
+           "normal_decode_cuda": B * (45 * valid_slots + 250 * T),
+           "uv_encode_cuda": B * T * 250 + geo_steps * 36 * 8}
+    rec["shape"] = {"meshes": B, "steps": T, "ring": R,
+                    "valid_slots": valid_slots,
+                    "bits": [BITS, NORMAL_BITS, UV_BITS]}
+    entries = {}
+    files = {"normal_encode_cuda": "normal_chains.cu",
+             "normal_decode_cuda": "normal_chains.cu",
+             "uv_encode_cuda": "uv_chain.cu"}
+    replaces = {
+        "normal_encode_cuda": "tpudraco/ops/normals.py:259-260 "
+                              "(normal_encode_chain's jax.jit; XLA in the "
+                              "reference, not Pallas)",
+        "normal_decode_cuda": "tpudraco/ops/normals.py:292 "
+                              "(_normal_decode_chain_jit; XLA, not Pallas)",
+        "uv_encode_cuda": "tpudraco/ops/texcoords.py:191 (_uv_chain_x64's "
+                          "jax.jit; XLA, not Pallas)"}
+    from torch.profiler import ProfilerActivity, profile
+
+    def launches_a_call(fn) -> float:
+        """Kernel launches a call of ``fn``: the most seen a call over
+        device traces of 1, 2, 4 ... 32 calls. The tracer loses events at
+        times, whole windows or part of one, and never adds any."""
+        most = 0.0
+        for calls in (1, 2, 4, 8, 16, 32):
+            sync()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                sync()
+            names = [e.name.lower() for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+            kernels = sum(1 for n in names
+                          if "memcpy" not in n and "memset" not in n)
+            most = max(most, kernels / calls)
+        return most
+
+    for name, fn in kernel_fns.items():
+        k_ms = cuda_ms(fn, 20)
+        p_ms = cuda_ms(plain_fns[name], 3)
+        alone = sum(kernel_only_ms(fn, kn) for kn in device_kernels[name])
+        k_tr, call_tr, p_tr = (traced(f) for f in (fn, chain_calls[name],
+                                                   plain_fns[name]))
+        for tr in (k_tr, call_tr, p_tr):
+            del tr["idle_share"]
+        call_tr["launches"] = launches_a_call(chain_calls[name])
+        _check(call_tr["launches"] <= 3,
+               f"{name}: a chain call made {call_tr['launches']} launches")
+        if call_tr["launches"] == 0:  # every trace lost them
+            rec.setdefault("traces_lost", []).append(name)
+        b = bound(moved[name], ops[name])
+        rec[name] = {"kernel": {"ms": k_ms, "alone_ms": alone, **k_tr},
+                     "chain_call": call_tr, "plain": {"ms": p_ms, **p_tr},
+                     **b, "share": b["bound_ms"] / k_ms,
+                     "share_alone": b["bound_ms"] / alone}
+        entries[name] = {
+            "file": files[name], "replaces": replaces[name],
+            "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "library_ms": None, "bytes": b["bytes"],
+            "share_of_bound": b["bound_ms"] / k_ms,
+            "kernel_only_ms": alone, "shape": rec["shape"]}
+    print(f"phase 9: C1, C2 and C3 equal their plain versions on the card "
+          f"and the CPU's on every output at ({B}, {T}, ring {R}) -qp {BITS} "
+          f"-qn {NORMAL_BITS} -qt {UV_BITS}, at -qp {DEEP_QP} -qn {DEEP_QN} "
+          f"-qt {DEEP_QT}, on a ring of {FAN} and on a batch with risky "
+          f"UV meshes {flagged} "
+          f"(the CPU's runs "
+          f"{ {k: round(v['cpu_plain_s'], 1) for k, v in rec['cases'].items()} }"
+          f" s); kernel ms / alone / launches / peak MB against plain ms / "
+          f"launches / peak MB, bound ms: "
+          f"{ {n: (round(rec[n]['kernel']['ms'], 4), round(rec[n]['kernel']['alone_ms'], 4), rec[n]['chain_call']['launches'], round(rec[n]['kernel']['peak_bytes'] / 1e6, 1), round(rec[n]['plain']['ms'], 2), rec[n]['plain']['launches'], round(rec[n]['plain']['peak_bytes'] / 1e6), round(rec[n]['bound_ms'], 4)) for n in kernel_fns} }")
+    return rec, entries
 
 
 def _phase12(torch, np, torchdraco, encode, tdev, tbatch,
@@ -2463,7 +2674,10 @@ def _phase14(torch, np, torchdraco, tdev, trl, tbatch, reset_launch_counts,
     rec = {"card": smi_line, "cards": n_cards,
            "axes": {n: axis_of(n) for n in (*SHARDS, STREAM_SHARDS)}}
     print(f"phase 14: shard axes {rec['axes']} ({n_cards} card(s))")
-    counted = (tdev.predict_residual, tdev.histogram, trl.rans_words_scan)
+    from torchdraco.ops import normals as tnorm
+    from torchdraco.ops import texcoords as ttex
+    counted = (tdev.predict_residual, tdev.histogram, trl.rans_words_scan,
+               tnorm.normal_encode_cuda, ttex.uv_encode_cuda)
 
     # 14.1: the batch cell, both coders, counted
     batch = {}
@@ -2476,7 +2690,8 @@ def _phase14(torch, np, torchdraco, tdev, trl, tbatch, reset_launch_counts,
             launches = {fn.__name__: fn.n_launches for fn in counted}
             per = n * -(-len(meshes3) // enc.DEVICE_CHUNK)
             want = {"predict_residual": per, "histogram": per,
-                    "rans_words_scan": per if ent == "device" else 0}
+                    "rans_words_scan": per if ent == "device" else 0,
+                    "normal_encode_cuda": per, "uv_encode_cuda": per}
             _check(launches == want, f"14.1 n={n} entropy={ent}: launches "
                    f"{launches}, want {want}")
             _check(enc.n_host_attributes == 0,
@@ -2495,7 +2710,8 @@ def _phase14(torch, np, torchdraco, tdev, trl, tbatch, reset_launch_counts,
     rec["launches"] = dict(batch[f"n{SHARDS[-1]}_device"]["launches"])
     print(f"phase 14.1: encode_meshes_device over axes of {SHARDS} on "
           f"{len(meshes3)} pos+normal+UV meshes, both coders: every blob "
-          f"equals phase 10's, 0 host attributes, K1/K2/K3 n a chunk; warm "
+          f"equals phase 10's, 0 host attributes, K1/K2/K3/C1/C3 n a chunk; "
+          f"warm "
           f"s " + ", ".join(f"{k} {v['warm_s']:.3f} (first "
                             f"{v['first_call_s']:.3f})"
                             for k, v in batch.items())

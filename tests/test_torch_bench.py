@@ -30,7 +30,8 @@ CPU = torch.device("cpu")
 TINY = {"TORCHDRACO_BENCH_BATCH": "8", "TORCHDRACO_BENCH_N": "12",
         "TORCHDRACO_BENCH_HUGE_N": "32"}
 KERNELS = ("predict_residual", "histogram", "rans_words_scan",
-           "rans_scan_dense", "rans_decode_lanes")
+           "rans_scan_dense", "rans_decode_lanes", "normal_encode_cuda",
+           "normal_decode_cuda", "uv_encode_cuda")
 
 
 @pytest.fixture(autouse=True, scope="module")

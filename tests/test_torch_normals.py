@@ -224,11 +224,12 @@ def test_trunc_div_matches_jax():
     assert np.array_equal(tn._trunc_div(_t(a), _t(b)).numpy(), want)
 
 
-def _normal_group(n, batch, seed, qp, spread=1.0):
-    """A topology group of ``batch`` grids with normals and UVs: the
+def _normal_group(n, batch, seed, qp, spread=1.0, fan=0):
+    """A topology group of ``batch`` grids with normals and UVs (one
+    vertex of valence ``fan``, which widens every ring to it): the
     quantized positions at depth ``qp``, the normals, the rings and the
     point -> unique-value maps, all numpy."""
-    pos, faces = torchdraco.make_mesh_batch(batch, n, seed)
+    pos, faces = torchdraco.make_mesh_batch(batch, n, seed, fan=fan)
     pos = (pos * np.float32(spread)).astype(np.float32)
     nrm, uvs = torchdraco.make_normal_uv_batch(pos, n, seed + 1)
     nrm[0, 2] = 0.0  # a zero normal
@@ -322,6 +323,38 @@ def test_normal_decode_chain_matches_jax(bits, qp, spread):
         *_jax_rings(g["rings"], g["uo_pos"]), bits=bits)
     assert got.dtype == torch.int32
     assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+FAN = 44
+
+
+@pytest.mark.parametrize("bits", (8, 15, 16))
+def test_fan_ring_chains_match_jax(bits):
+    """A ring of FAN slots (one fan vertex), a zero normal, a zero ring
+    and a mesh whose rings sum to zero: both chains on CPU tensors (their
+    plain versions) equal tpudraco's jitted chains."""
+    g = _normal_group(FAN + 1, 3, bits, 11, fan=FAN)
+    assert g["rings"]["next_pt"].shape[1] == FAN
+    tr = tn.rings_to_torch(g["rings"], "cpu")
+    sym, flips = tn.normal_encode_chain(
+        _t(g["q"]), _t(g["normals"]), *(tr[k] for k in RING_KEYS),
+        _t(g["uo_pos"].astype(np.int64)), _t(g["uo_nrm"].astype(np.int64)),
+        bits=bits)
+    jsym, jflips = jn.normal_encode_chain(
+        jnp.asarray(g["q"]), jnp.asarray(g["normals"]),
+        *_jax_rings(g["rings"]),
+        jnp.asarray(g["uo_pos"].astype(np.int32)),
+        jnp.asarray(g["uo_nrm"].astype(np.int32)), bits=bits)
+    assert np.array_equal(sym.numpy(), np.asarray(jsym))
+    assert np.array_equal(flips.numpy(), np.asarray(jflips))
+    ti = tn.rings_to_torch(g["rings"], "cpu", rows=g["uo_pos"])
+    back = tn.normal_decode_chain(_t(g["q"]), sym, flips,
+                                  *(ti[k] for k in RING_KEYS), bits=bits)
+    jback = jn.normal_decode_chain(
+        jnp.asarray(g["q"]), jnp.asarray(sym.numpy()),
+        jnp.asarray(flips.numpy()), *_jax_rings(g["rings"], g["uo_pos"]),
+        bits=bits)
+    assert np.array_equal(back.numpy(), np.asarray(jback))
 
 
 @pytest.mark.parametrize("bits", (8, 16))

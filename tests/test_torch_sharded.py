@@ -128,7 +128,8 @@ def test_every_kernel_launch_is_guarded():
     than the current one launches on its own card."""
     ops = os.path.dirname(tdev.__file__)
     guarded = []
-    for name in ("device.py", "rans_lanes.py"):
+    for name in ("device.py", "rans_lanes.py", "normals.py",
+                 "texcoords.py"):
         tree = ast.parse(open(os.path.join(ops, name)).read())
         for fn in ast.walk(tree):
             if not isinstance(fn, ast.FunctionDef) or "_build.load()" not in \
@@ -149,9 +150,10 @@ def test_every_kernel_launch_is_guarded():
                        and ast.unparse(n.func) == "_build.check"
                        for n in inside), fn.name
             guarded.append(fn.name)
-    assert sorted(guarded) == ["histogram", "predict_residual",
+    assert sorted(guarded) == ["histogram", "normal_decode_cuda",
+                               "normal_encode_cuda", "predict_residual",
                                "rans_decode_lanes", "rans_scan_dense",
-                               "rans_words_scan"]
+                               "rans_words_scan", "uv_encode_cuda"]
 
 
 # ------------------------------------------------- the data-parallel step

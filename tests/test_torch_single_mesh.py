@@ -498,8 +498,8 @@ def test_make_mesh_batch_fan(fan):
 
 def test_encode_huge_weighs_the_ring_width(monkeypatch):
     """The estimate charges each TEX_COORD attribute per vertex and each
-    NORMAL attribute the device chain takes T x R ring slots, R the rings'
-    own width: a fan vertex of valence 13 sends a mesh to the chunked
+    NORMAL attribute the device chain takes T x R ring slots of its
+    tables and T steps, R the rings' own width: a fan vertex of valence 13 sends a mesh to the chunked
     route under a budget that keeps the plain grid of nearly the same
     size resident, and a depth at which the chain leaves the normals to
     the host charges no ring."""
@@ -517,7 +517,9 @@ def test_encode_huge_weighs_the_ring_width(monkeypatch):
         assert peaks[fan] == (
             V * (be.RESIDENT_BYTES_PER_VERTEX
                  + be.RESIDENT_UV_BYTES_PER_VERTEX)
-            + len(topo.sequences[ni]) * R * tbatch.RING_BYTES_PER_SLOT)
+            + len(topo.sequences[ni]) * (
+                R * tbatch.RING_TABLE_BYTES_PER_SLOT
+                + be.RESIDENT_NORMAL_BYTES_PER_STEP))
     assert peaks[13] > peaks[0]
     taken = _spy_routes(monkeypatch)
     monkeypatch.setattr(tbatch.BatchEncoder, "RESIDENT_MAX_BYTES", peaks[0])

@@ -74,8 +74,8 @@ def test_unsigned_comparison_at_the_boundary():
         assert np.asarray(ju >= jnp.uint64(1 << 62)).tolist() == want
 
 
-def _uv_group(n, batch, seed, qp, qt, spread=1.0, random_uv=False):
-    pos, faces = torchdraco.make_mesh_batch(batch, n, seed)
+def _uv_group(n, batch, seed, qp, qt, spread=1.0, random_uv=False, fan=0):
+    pos, faces = torchdraco.make_mesh_batch(batch, n, seed, fan=fan)
     pos = (pos * np.float32(spread)).astype(np.float32)
     nrm, uvs = torchdraco.make_normal_uv_batch(pos, n, seed + 1)
     if random_uv:
@@ -113,6 +113,59 @@ def test_uv_encode_chain_matches_jax(qp, qt, spread, random_uv):
     assert got[4].any()  # the geometric predictor really ran
     # 18-bit positions leave the int64 headroom in some meshes
     assert got[5].any() == (qp == 18)
+
+
+def test_fan_ring_uv_chain_matches_jax():
+    """One fan vertex of valence 40: the chain on the CPU (its plain
+    version, also by name) equals tpudraco's."""
+    args = _uv_group(41, 3, 8, 11, 10, fan=40)
+    got = tt.uv_encode_chain(*args, device="cpu")
+    _assert_same_outputs(got, jt.uv_encode_chain(*args))
+    _assert_same_outputs(tt.uv_encode_chain_ref(*args, device="cpu"), got)
+
+
+def _int_sqrt_loop(value: int) -> tuple[int, int, int]:
+    """``torchdraco/ops/csrc/uv_chain.cu`` int_sqrt, line for line, in
+    Python ints with its int64 product wrapped: (root, seed rounds,
+    Newton rounds)."""
+    if value <= 0:
+        return 0, 0, 0
+    act, s, seed = value, 1, 0
+    while act >= 2:
+        s *= 2
+        act >>= 2
+        seed += 1
+    s = (s + value // s) >> 1
+    newton = 0
+    while ((s * s + (1 << 63)) % (1 << 64)) - (1 << 63) > value:
+        s = (s + value // (s if s > 0 else 1)) >> 1
+        newton += 1
+    return s, seed, newton
+
+
+def test_int_sqrt_loop_form_equals_the_fixed_rounds():
+    """The early-exit loops of C3 equal the 32 + 64 fixed rounds of
+    ``_int_sqrt_dev`` on 0, 1, 2^62 - 1, powers of 2, squares and squares
+    +- 1 up to (2^31 - 1)^2, and random values below 2^62; they stay
+    within those round counts."""
+    rng = np.random.default_rng(31)
+    roots = np.concatenate([np.arange(0, 70), 2 ** np.arange(0, 31),
+                            2 ** np.arange(1, 32) - 1,
+                            [46340, 46341, 3037000499, (1 << 31) - 1],
+                            rng.integers(0, 1 << 31, 300)]).astype(np.int64)
+    sq = [int(r) * int(r) for r in roots]
+    vals = sorted({v for s in sq for v in (s - 1, s, s + 1)
+                   if 0 <= v < 1 << 62}
+                  | {0, 1, 2, 3, (1 << 62) - 1, (1 << 62) - 2}
+                  | {1 << k for k in range(62)}
+                  | {int(v) for v in rng.integers(0, 1 << 62, 400)})
+    fixed = tt._int_sqrt_dev(torch.tensor(vals, dtype=torch.int64))
+    loop = [_int_sqrt_loop(v) for v in vals]
+    assert fixed.tolist() == [r for r, _, _ in loop]
+    assert max(s for _, s, _ in loop) <= 32
+    assert max(n for _, _, n in loop) <= 64
+    assert all(r * r <= v < (r + 1) * (r + 1)
+               for v, (r, _, _) in zip(vals, loop))
 
 
 def test_uv_chain_takes_tensors_and_uint16():

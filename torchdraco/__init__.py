@@ -12,17 +12,18 @@ PyTorch twin:
   ops/device.py             K1 predict_residual, K2 histogram (fused step)
   ops/rans_lanes.py         K3 rans_words_scan, K4 rans_scan_dense (the
                             multi-lane rANS coder), D1 rans_decode_lanes
+  ops/normals.py            the NORMAL chains: C1 normal_encode_cuda and
+                            C2 normal_decode_cuda, behind
+                            normal_encode_chain and normal_decode_chain
+  ops/texcoords.py          the TEX_COORD chain: C3 uv_encode_cuda, behind
+                            uv_encode_chain
   parallel/batch.py         BatchEncoder.encode_meshes_device, and for
                             one large mesh encode_mesh (host plane),
                             encode_mesh_device (resident),
                             encode_mesh_device_chunked (streaming)
   parallel/decode_batch.py  BatchDecoder.decode_blobs_shared_topology
 
-and the NORMAL and TEX_COORD chains of both, plain functions on tensors
-(XLA programs in tpudraco, no kernel of their own there either):
-
-  ops/normals.py            normal_encode_chain, normal_decode_chain
-  ops/texcoords.py          uv_encode_chain
+(tpudraco's chains are XLA programs, no Pallas kernel of their own).
 
 Several devices: a shard axis (``mesh_axis``, device.py ``resolve_axis``)
 splits the batch path, the lane coder, the encode chains

@@ -1,7 +1,8 @@
 """Tensor ops of the port: the fused encode step (K1, K2) and the float
 side of the single-mesh routes, the multi-lane rANS coder in its words
-(K3) and dense (K4) forms, and the lane decoder (D1), each kernel a CUDA
-kernel beside its plain PyTorch twin."""
+(K3) and dense (K4) forms, the lane decoder (D1), and the NORMAL and
+TEX_COORD chains (C1 normal encode, C2 normal decode, C3 UV encode), each
+kernel a CUDA kernel beside its plain PyTorch twin."""
 
 from .device import (
     bincount_kernel, default_hist_bins, dequantize_kernel, encode_step,
@@ -14,15 +15,18 @@ from .device import (
     unzigzag_kernel, upload_layout_of, widen, wrapped_difference_kernel,
     zigzag_kernel,
 )
+from .normals import normal_decode_cuda, normal_encode_cuda
 from .rans_lanes import (
     encode_direct_coded_streams_device, encode_group_entropy_device,
     encode_streams_device, normalize_tables, rans_decode_lanes,
     rans_decode_lanes_ref, rans_encode_lanes, rans_scan_dense,
     rans_scan_dense_ref, rans_words_scan, rans_words_scan_ref,
 )
+from .texcoords import uv_encode_cuda
 
 KERNEL_WRAPPERS = (predict_residual, histogram, rans_words_scan,
-                   rans_scan_dense, rans_decode_lanes)
+                   rans_scan_dense, rans_decode_lanes, normal_encode_cuda,
+                   normal_decode_cuda, uv_encode_cuda)
 
 
 def reset_launch_counts() -> None:
@@ -42,7 +46,8 @@ __all__ = [
     "encode_step_from_q", "encode_step_from_q_cuda",
     "encode_step_stream_sharded",
     "encode_streams_device", "histogram", "histogram_form",
-    "histogram_smem_bins", "minmax_chunk_kernel", "normalize_tables",
+    "histogram_smem_bins", "minmax_chunk_kernel", "normal_decode_cuda",
+    "normal_encode_cuda", "normalize_tables",
     "parallelogram_predict_kernel", "predict_form", "predict_residual",
     "predict_residual_ref", "predict_tiles", "quantize_kernel",
     "quantize_rows_kernel",
@@ -50,6 +55,7 @@ __all__ = [
     "rans_decode_lanes_ref", "rans_encode_lanes", "rans_scan_dense",
     "rans_scan_dense_ref", "rans_words_scan", "rans_words_scan_ref",
     "reset_launch_counts", "unpack12_kernel", "unzigzag_kernel",
+    "uv_encode_cuda",
     "upload_layout_of", "widen", "wrapped_difference_kernel",
     "zigzag_kernel",
 ]

@@ -10,8 +10,9 @@ there is no fallback to the plain versions, which would hide a broken
 kernel behind a slow correct answer.
 
 ``-fmad=false`` keeps ``nvcc`` from contracting a float multiply and add
-into an FMA; the integer kernels here do not care, but the float chains
-that later kernels port (normals, UVs) are held bit-exact to numpy.
+into an FMA; the integer kernels here do not care, and the NORMAL chains'
+kernels (``csrc/normal_chains.cu``), held bit-exact to numpy, write every
+float step as an explicitly rounded intrinsic besides.
 """
 
 from __future__ import annotations
@@ -57,6 +58,9 @@ _SIGNATURES = {
                        _P],
     "tdr_rans_decode": [_P, _I64, _P, _P, _I64, _I64, _P, _I64, _I64, _I32,
                         _I32, _I32, _P, _P],
+    "tdr_normal_encode": [_P] * 8 + [_I64] * 4 + [_I32] * 2 + [_P] * 3,
+    "tdr_normal_decode": [_P] * 7 + [_I64] * 3 + [_I32] * 2 + [_P] * 2,
+    "tdr_uv_encode": [_P] * 13 + [_I64] * 4 + [_P] * 7,
 }
 
 

@@ -170,6 +170,16 @@ def widen(q) -> torch.Tensor:
     return q.to(torch.int32)
 
 
+_EXACT_IN_INT32 = (torch.uint8, torch.int8, torch.int16, torch.uint16)
+
+
+def int32_values(q: torch.Tensor) -> torch.Tensor:
+    """An integer tensor as int32 where its type holds only int32 values
+    (uint8, int8, int16 and uint16 are cast; int32 is itself); a tensor of
+    another type comes back as it is, for a kernel entry to refuse."""
+    return q.to(torch.int32) if q.dtype in _EXACT_IN_INT32 else q
+
+
 def predict_residual_ref(q, gathers, vmin, vmax) -> torch.Tensor:
     """Plain version of K1: (B, T, C) int32 symbols against the given
     per-mesh residual range; q in any upload layout (``widen``)."""
@@ -258,6 +268,27 @@ _GATHER_MASK = ("can_para", "has_fallback")
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def _on_the_card(dev: torch.device, kernel: str) -> None:
+    """Raise unless ``dev`` is a card: the last of a chain wrapper's
+    checks, so that the others show on the CPU too."""
+    _require(dev.type == "cuda", f"unsupported device {dev}: {kernel} runs "
+             f"on CUDA tensors (the plain version takes the CPU's)")
+
+
+def _expect(t, name: str, dev: torch.device, dtype, shape: tuple) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor on ``dev`` of
+    ``shape`` (None: any length on that axis)."""
+    if not (isinstance(t, torch.Tensor) and t.device == dev
+            and t.dtype == dtype and t.is_contiguous()
+            and t.dim() == len(shape)
+            and all(n is None or n == m for n, m in zip(shape, t.shape))):
+        want = tuple("*" if n is None else n for n in shape)
+        got = (f"{tuple(t.shape)} {t.dtype} on {t.device}"
+               if isinstance(t, torch.Tensor) else type(t).__name__)
+        raise ValueError(f"{name} must be a contiguous {want} {dtype} "
+                         f"tensor on {dev}, got {got}")
 
 
 @contextlib.contextmanager

@@ -1,4 +1,5 @@
-"""The NORMAL attribute's device chains, as plain functions on tensors.
+"""The NORMAL attribute's device chains: the CUDA kernels C1 (encode) and
+C2 (decode), and their plain versions on tensors.
 
 Counterpart of ``tpudraco/ops/normals.py``. Mirrors the host pipeline bit
 for bit for NORMAL attributes: octahedral quantization
@@ -7,11 +8,21 @@ NormalPrediction), flip selection, and the OctahedralOrthogonal residual
 transform (encode/transforms.py) and its inverse, batched over meshes
 sharing one topology.
 
-The float steps use the device's own IEEE-754 float32 ``/``, ``*`` and
-square root (``_f32_sqrt``), each as a separate eager op, so no product is
-contracted into a neighbouring add and every result is the correctly
-rounded one numpy gives on the host. The ring sum runs in int64 and wraps to int32 where the
-host wraps; the symbols equal the host encoder's exactly (pinned by tests).
+``normal_encode_chain`` and ``normal_decode_chain`` take the device their
+tensors lie on: on the card the kernels of ``csrc/normal_chains.cu``
+(``normal_encode_cuda``, ``normal_decode_cuda``: one launch a call, a
+thread a (mesh, step), tpudraco's XLA programs of the two chains
+replaced), on the CPU the plain versions (``normal_encode_chain_ref``,
+``normal_decode_chain_ref``), which the tests and chip_smoke.py also call
+by name on the card.
+
+The plain versions' float steps use the device's own IEEE-754 float32
+``/``, ``*`` and square root (``_f32_sqrt``), each as a separate eager op,
+so no product is contracted into a neighbouring add and every result is
+the correctly rounded one numpy gives on the host; the kernels take each
+step as one correctly rounded intrinsic. The ring sum runs in int64 and
+wraps to int32 where the host wraps; the symbols equal the host encoder's
+exactly (pinned by tests).
 
 Reference semantics: mesh_normal_prediction.rs (ring cross-product sums,
 clamp at 2^29, flips), octahedral_quantization.rs + geom.rs (transform +
@@ -26,13 +37,22 @@ import torch
 from ..device import replicate, resolve, resolve_axis, shard_rows
 # single source of truth for the ring precompute lives with the host twin
 from ..shared.prediction import collect_normal_rings  # noqa: F401
+from . import _build
+from .device import (_expect, _launch_on, _on_the_card, _require,
+                     int32_values)
 
-# Working-set budget of one ring prediction. _ring_predict holds about
-# RING_BYTES_PER_SLOT bytes for each (mesh, step, ring slot): two (.., 3)
-# int64 edge tensors, the int64 cross products and the temporaries of their
-# six products. A batch past the budget runs as sub-batches of meshes.
+# Working-set budget of one plain ring prediction. _ring_predict holds
+# about RING_BYTES_PER_SLOT bytes for each (mesh, step, ring slot): two
+# (.., 3) int64 edge tensors, the int64 cross products and the temporaries
+# of their six products. A batch past the budget runs as sub-batches of
+# meshes. The kernels hold nothing of the kind: their memory is their
+# inputs and outputs, the ring tables (RING_TABLE_BYTES_PER_SLOT a slot)
+# among them.
 RING_BUDGET_BYTES = 8 << 30
 RING_BYTES_PER_SLOT = 8 * 3 * 8
+# the bytes of one ring slot in ``rings_to_torch``'s tables: the int64
+# next and previous rows and the bool mask
+RING_TABLE_BYTES_PER_SLOT = 8 + 8 + 1
 
 
 # ---------------------------------------------------------------- host prep
@@ -237,9 +257,11 @@ def _sub_batches(n_meshes: int, steps: int, ring: int) -> int:
 def normal_encode_chain(q_pos, normals, tip_pt, next_pt, prev_pt, mask,
                         uo_point_pos, uo_point_nrm, bits: int = 8):
     """Batched device encode of a NORMAL attribute, on the device its
-    tensors lie on.
+    tensors lie on: C1 (``normal_encode_cuda``) on the card, the plain
+    version (``normal_encode_chain_ref``) on the CPU.
 
-    q_pos:    (B, Vp, 3) integer quantized positions (unique values)
+    q_pos:    (B, Vp, 3) integer quantized positions (unique values; on
+              the card of a type that int32 holds: uint8, uint16, int32)
     normals:  (B, Vn, 3) float32 normal values (unique values)
     tip_pt/next_pt/prev_pt/mask: ring precompute (collect_normal_rings,
     rings_to_torch)
@@ -248,8 +270,21 @@ def normal_encode_chain(q_pos, normals, tip_pt, next_pt, prev_pt, mask,
           prediction, faithful fixups, squeeze — runs at this depth,
           matching the host chain with Config.quant_bits[NORMAL]=bits.
 
-    Returns (symbols (B, T, 2) int32, flips (B, T) bool). A batch whose
-    ring tensors would pass RING_BUDGET_BYTES runs as sub-batches."""
+    Returns (symbols (B, T, 2) int32, flips (B, T) bool)."""
+    if q_pos.device.type == "cuda":
+        return normal_encode_cuda(int32_values(q_pos), normals, tip_pt,
+                                  next_pt, prev_pt, mask, uo_point_pos,
+                                  uo_point_nrm, bits=bits)
+    return normal_encode_chain_ref(q_pos, normals, tip_pt, next_pt, prev_pt,
+                                   mask, uo_point_pos, uo_point_nrm,
+                                   bits=bits)
+
+
+def normal_encode_chain_ref(q_pos, normals, tip_pt, next_pt, prev_pt, mask,
+                            uo_point_pos, uo_point_nrm, bits: int = 8):
+    """The plain version of C1, on the device the tensors lie on: eager
+    torch operations (``_normal_encode_chain_impl``); a batch whose ring
+    tensors would pass RING_BUDGET_BYTES runs as sub-batches."""
     B = q_pos.shape[0]
     step = _sub_batches(B, next_pt.shape[0], next_pt.shape[1])
     if step >= B:
@@ -264,6 +299,59 @@ def normal_encode_chain(q_pos, normals, tip_pt, next_pt, prev_pt, mask,
             torch.cat([p[1] for p in parts]))
 
 
+def _check_rings(dev, tip, nxt, prv, mask) -> tuple[int, int]:
+    """Raise unless the ring tables are ``rings_to_torch``'s on ``dev``;
+    returns (T, R)."""
+    _expect(nxt, "next", dev, torch.int64, (None, None))
+    T, R = nxt.shape
+    _expect(tip, "tip", dev, torch.int64, (T,))
+    _expect(prv, "prev", dev, torch.int64, (T, R))
+    _expect(mask, "mask", dev, torch.bool, (T, R))
+    return T, R
+
+
+def encode_outputs(B: int, T: int, device) -> tuple:
+    """C1's outputs as ``normal_encode_cuda`` allocates them: symbols (B,
+    T, 2) int32 and flips (B, T) bool."""
+    return (torch.empty((B, T, 2), dtype=torch.int32, device=device),
+            torch.empty((B, T), dtype=torch.bool, device=device))
+
+
+def normal_encode_cuda(q_pos, normals, tip_pt, next_pt, prev_pt, mask,
+                       uo_point_pos, uo_point_nrm, bits: int = 8):
+    """C1 (``csrc/normal_chains.cu``): ``normal_encode_chain`` in one
+    launch, a thread a (mesh, step). q_pos (B, Vp, 3) int32, normals (B,
+    Vn, 3) float32, the ring tables of ``rings_to_torch`` and the int64
+    maps, all on one card; indices must lie in range. Raises on anything
+    else, a CPU tensor included. Counts its launches in ``n_launches``."""
+    dev = q_pos.device
+    _require(1 <= bits <= 16, f"bits must be in [1, 16], got {bits}")
+    _expect(q_pos, "q_pos", dev, torch.int32, (None, None, 3))
+    B, Vp, _ = q_pos.shape
+    _expect(normals, "normals", dev, torch.float32, (B, None, 3))
+    T, R = _check_rings(dev, tip_pt, next_pt, prev_pt, mask)
+    _expect(uo_point_pos, "uo_point_pos", dev, torch.int64, (None,))
+    _expect(uo_point_nrm, "uo_point_nrm", dev, torch.int64, (None,))
+    _on_the_card(dev, "C1")
+    sym, flips = encode_outputs(B, T, dev)
+    if B * T == 0:
+        return sym, flips
+    lib = _build.load()
+    with _launch_on(q_pos) as stream:
+        rc = lib.tdr_normal_encode(
+            q_pos.data_ptr(), normals.data_ptr(), tip_pt.data_ptr(),
+            next_pt.data_ptr(), prev_pt.data_ptr(), mask.data_ptr(),
+            uo_point_pos.data_ptr(), uo_point_nrm.data_ptr(), B, Vp,
+            normals.shape[1], T, R, bits, sym.data_ptr(), flips.data_ptr(),
+            stream)
+        _build.check(rc, "normal_encode_cuda")
+    normal_encode_cuda.n_launches += 1
+    return sym, flips
+
+
+normal_encode_cuda.n_launches = 0
+
+
 def normal_encode_chain_sharded(q_pos, normals, tip_pt, next_pt, prev_pt,
                                 mask, uo_point_pos, uo_point_nrm,
                                 bits: int = 8, mesh_axis=None):
@@ -272,7 +360,7 @@ def normal_encode_chain_sharded(q_pos, normals, tip_pt, next_pt, prev_pt,
     ``_jit_normal_chain_sharded``: q_pos and normals are cut along the
     batch axis (``shard_rows``), every ring and index table is copied to
     each distinct device (``replicate``), and each shard runs the chain on
-    its device, in sub-batches as the chain runs them. Any argument may
+    its device (C1 on a card). Any argument may
     come as a list, one entry a shard, each on its device. Returns
     (symbols, flips) as the chain does, in shard order on the axis's
     first device."""
@@ -366,20 +454,34 @@ def invert_diamond_inverse_device(w: torch.Tensor,
 def normal_decode_chain(q_pos, symbols, flips, tip_i, next_i, prev_i,
                         mask, bits: int = 8):
     """Batched device DECODE of a NORMAL attribute (the phased decoder's
-    second phase): re-predict from the already-decoded positions with the
-    exact encoder ring compute (_ring_predict), apply the wire flips,
-    then invert the OctOrthogonal residual — the device mirror of
-    decode/attribute.py _decode_normals_vectorized, integer-exact.
+    second phase), on the device its tensors lie on: C2
+    (``normal_decode_cuda``) on the card, the plain version
+    (``normal_decode_chain_ref``) on the CPU. Re-predicts from the
+    already-decoded positions with the exact encoder ring compute
+    (_ring_predict), applies the wire flips, then inverts the
+    OctOrthogonal residual — the device mirror of decode/attribute.py
+    _decode_normals_vectorized, integer-exact.
 
     q_pos:   (B, Vp, 3) integer decoded quantized positions (by vertex)
-    symbols: (B, T, 2) integer residual symbols (decode order)
+    symbols: (B, T, 2) integer residual symbols (decode order; int32 on
+             the card)
     flips:   (B, T) bool wire flip bits
     tip_i/next_i/prev_i/mask: ring rows into q_pos (corner -> vertex
     resolved on host, rings_to_torch)
 
-    Returns (B, T, 2) int32 decoded oct values along the traversal. A
-    batch whose ring tensors would pass RING_BUDGET_BYTES runs as
-    sub-batches."""
+    Returns (B, T, 2) int32 decoded oct values along the traversal."""
+    if q_pos.device.type == "cuda":
+        return normal_decode_cuda(int32_values(q_pos), symbols, flips, tip_i,
+                                  next_i, prev_i, mask, bits=bits)
+    return normal_decode_chain_ref(q_pos, symbols, flips, tip_i, next_i,
+                                   prev_i, mask, bits=bits)
+
+
+def normal_decode_chain_ref(q_pos, symbols, flips, tip_i, next_i, prev_i,
+                            mask, bits: int = 8):
+    """The plain version of C2, on the device the tensors lie on: eager
+    torch operations (``_normal_decode_chain_impl``); a batch whose ring
+    tensors would pass RING_BUDGET_BYTES runs as sub-batches."""
     B = q_pos.shape[0]
     step = _sub_batches(B, next_i.shape[0], next_i.shape[1])
     if step >= B:
@@ -389,6 +491,45 @@ def normal_decode_chain(q_pos, symbols, flips, tip_i, next_i, prev_i,
         q_pos[b0:b0 + step], symbols[b0:b0 + step], flips[b0:b0 + step],
         tip_i, next_i, prev_i, mask, bits=bits)
         for b0 in range(0, B, step)])
+
+
+def decode_outputs(B: int, T: int, device) -> torch.Tensor:
+    """C2's output as ``normal_decode_cuda`` allocates it: (B, T, 2)
+    int32."""
+    return torch.empty((B, T, 2), dtype=torch.int32, device=device)
+
+
+def normal_decode_cuda(q_pos, symbols, flips, tip_i, next_i, prev_i, mask,
+                       bits: int = 8):
+    """C2 (``csrc/normal_chains.cu``): ``normal_decode_chain`` in one
+    launch, a thread a (mesh, step). q_pos (B, Vp, 3) int32, symbols (B,
+    T, 2) int32, flips (B, T) bool and the ring rows of ``rings_to_torch``
+    (vertex rows), all on one card; rows must lie in [0, Vp). Raises on
+    anything else, a CPU tensor included. Counts its launches in
+    ``n_launches``."""
+    dev = q_pos.device
+    _require(1 <= bits <= 16, f"bits must be in [1, 16], got {bits}")
+    _expect(q_pos, "q_pos", dev, torch.int32, (None, None, 3))
+    B, Vp, _ = q_pos.shape
+    T, R = _check_rings(dev, tip_i, next_i, prev_i, mask)
+    _expect(symbols, "symbols", dev, torch.int32, (B, T, 2))
+    _expect(flips, "flips", dev, torch.bool, (B, T))
+    _on_the_card(dev, "C2")
+    out = decode_outputs(B, T, dev)
+    if B * T == 0:
+        return out
+    lib = _build.load()
+    with _launch_on(q_pos) as stream:
+        rc = lib.tdr_normal_decode(
+            q_pos.data_ptr(), symbols.data_ptr(), flips.data_ptr(),
+            tip_i.data_ptr(), next_i.data_ptr(), prev_i.data_ptr(),
+            mask.data_ptr(), B, Vp, T, R, bits, out.data_ptr(), stream)
+        _build.check(rc, "normal_decode_cuda")
+    normal_decode_cuda.n_launches += 1
+    return out
+
+
+normal_decode_cuda.n_launches = 0
 
 
 def _normal_decode_chain_impl(q_pos, symbols, flips, tip_i, next_i, prev_i,

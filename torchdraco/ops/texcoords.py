@@ -1,5 +1,5 @@
-"""The TEX_COORD attribute's device encode chain, as plain functions on
-tensors.
+"""The TEX_COORD attribute's device encode chain: the CUDA kernel C3 and
+its plain version on tensors.
 
 Counterpart of ``tpudraco/ops/texcoords.py``: the encoder-side batched UV
 prediction (shared/prediction.py TexCoordPrediction.predict_sequence) in
@@ -8,6 +8,12 @@ WrappedDifference residual. Bit-identical to the host path (pinned by
 tests); rows whose intermediates could exceed the int64 headroom mark the
 mesh "risky" and the integration layer routes that mesh to the host
 encoder (the host handles them with arbitrary-precision Python ints).
+
+``uv_encode_chain`` runs on its device: on the card the kernels of
+``csrc/uv_chain.cu`` (``uv_encode_cuda``: the mesh's UV range, then a
+thread a (mesh, step); tpudraco's XLA program of the chain replaced), on
+the CPU the plain version (``_uv_chain_impl``), which the tests and
+chip_smoke.py also call by name on the card (``uv_encode_chain_ref``).
 
 Reference semantics: mesh_prediction_for_texture_coordinates.rs (integer
 sqrt, overflow guards, the intentionally omitted prev-vertex fallback,
@@ -23,6 +29,9 @@ from ..device import replicate, resolve, resolve_axis, shard_rows
 # single source of truth for the topology-static UV gathers lives with
 # the host twin
 from ..shared.prediction import collect_uv_gathers  # noqa: F401
+from . import _build
+from .device import (_expect, _launch_on, _on_the_card, _require,
+                     int32_values)
 
 _UV_INDEX_KEYS = ("cpt", "npt", "ppt", "last_pt")
 _UV_MASK_KEYS = ("vis_n", "vis_p", "pos_ok_n", "pos_ok_p", "pos_ok_c")
@@ -41,19 +50,27 @@ def uv_gathers_to_torch(g: dict, device) -> dict:
     return out
 
 
-def _as_tensor(x, dev: torch.device, dtype) -> torch.Tensor:
+# the bytes of one step in ``uv_gathers_to_torch``'s tables: four int64
+# point indices and five bool masks
+UV_TABLE_BYTES_PER_STEP = 4 * 8 + 5
+
+
+def _as_tensor(x, dev: torch.device, dtype=None) -> torch.Tensor:
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.ascontiguousarray(x))
-    return x.to(dev).to(dtype)
+    x = x.to(dev)
+    return x if dtype is None else x.to(dtype)
 
 
 def uv_encode_chain(q_pos, q_uv, g, uo_pos, uo_uv, device=None):
-    """Batched device UV encode on ``device`` (None: the card; ``"cpu"``
-    runs the same tensor code there). Arrays are numpy or tensors; ``g``
-    is the collect_uv_gathers dict, as numpy or from uv_gathers_to_torch.
+    """Batched device UV encode on ``device`` (None: the card, where C3
+    runs, ``uv_encode_cuda``; ``"cpu"`` runs the plain version there).
+    Arrays are numpy or tensors; ``g`` is the collect_uv_gathers dict, as
+    numpy or from uv_gathers_to_torch.
 
-    q_pos: (B, Vp, 3) int quantized positions (unique values)
-    q_uv:  (B, Vu, 2) int quantized UVs (unique values)
+    q_pos: (B, Vp, 3) int quantized positions (unique values; on the card
+           of a type that int32 holds: uint8, uint16, int32)
+    q_uv:  (B, Vu, 2) int quantized UVs (unique values; the same types)
     uo_*: point -> unique-value maps
 
     Returns numpy (symbols (B, T, 2) uint32, vmin (B,), vmax (B,),
@@ -63,6 +80,16 @@ def uv_encode_chain(q_pos, q_uv, g, uo_pos, uo_uv, device=None):
     if not isinstance(g["cpt"], torch.Tensor):
         g = uv_gathers_to_torch(g, dev)
     return _uv_numpy([_uv_chain_on(dev, q_pos, q_uv, g, uo_pos, uo_uv)])
+
+
+def uv_encode_chain_ref(q_pos, q_uv, g, uo_pos, uo_uv, device=None):
+    """The plain version of C3 on ``device`` (None: the card), whatever
+    the device: ``uv_encode_chain``'s arguments and returns, through
+    ``_uv_chain_impl``'s eager torch operations."""
+    dev = resolve(device)
+    if not isinstance(g["cpt"], torch.Tensor):
+        g = uv_gathers_to_torch(g, dev)
+    return _uv_numpy([_uv_chain_plain(dev, q_pos, q_uv, g, uo_pos, uo_uv)])
 
 
 def uv_encode_chain_sharded(q_pos, q_uv, g, uo_pos, uo_uv, mesh_axis=None):
@@ -87,13 +114,76 @@ def uv_encode_chain_sharded(q_pos, q_uv, g, uo_pos, uo_uv, mesh_axis=None):
 
 
 def _uv_chain_on(dev, q_pos, q_uv, g, uo_pos, uo_uv) -> tuple:
-    """Enqueue the chain on ``dev``; ``g`` holds tensors."""
+    """Enqueue the chain on ``dev``, C3 on a card; ``g`` holds tensors."""
+    if dev.type != "cuda":
+        return _uv_chain_plain(dev, q_pos, q_uv, g, uo_pos, uo_uv)
+    return uv_encode_cuda(
+        int32_values(_as_tensor(q_pos, dev)),
+        int32_values(_as_tensor(q_uv, dev)),
+        {k: g[k].to(dev) for k in _UV_INDEX_KEYS + _UV_MASK_KEYS},
+        _as_tensor(uo_pos, dev, torch.int64),
+        _as_tensor(uo_uv, dev, torch.int64))
+
+
+def _uv_chain_plain(dev, q_pos, q_uv, g, uo_pos, uo_uv) -> tuple:
+    """Enqueue the plain version on ``dev``; ``g`` holds tensors."""
     return _uv_chain_impl(
         _as_tensor(q_pos, dev, torch.int64),
         _as_tensor(q_uv, dev, torch.int64),
         _as_tensor(uo_pos, dev, torch.int64),
         _as_tensor(uo_uv, dev, torch.int64),
         *(g[k].to(dev) for k in _UV_INDEX_KEYS + _UV_MASK_KEYS))
+
+
+def uv_outputs(B: int, T: int, device) -> tuple:
+    """C3's outputs as ``uv_encode_cuda`` allocates them: symbols (B, T,
+    2) int32 (the wire's uint32 bits), vmin and vmax (B,) int32, orient
+    and geo_v (B, T) bool, risky (B,) bool."""
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=device)
+    return (empty((B, T, 2), torch.int32), empty((B,), torch.int32),
+            empty((B,), torch.int32), empty((B, T), torch.bool),
+            empty((B, T), torch.bool), empty((B,), torch.bool))
+
+
+def uv_encode_cuda(q_pos, q_uv, g: dict, uo_pos, uo_uv) -> tuple:
+    """C3 (``csrc/uv_chain.cu``): ``_uv_chain_impl`` in two launches, the
+    mesh's UV range (a block a mesh), then a thread a (mesh, step). q_pos
+    (B, Vp, 3) and q_uv (B, Vu, 2) int32, Vu >= 1; ``g`` the tables of
+    ``uv_gathers_to_torch``; the int64 maps; all on one card; indices must
+    lie in range. Raises on anything else, a CPU tensor included. Returns
+    ``uv_outputs``' six tensors, filled. Counts its calls in
+    ``n_launches``."""
+    dev = q_uv.device
+    _expect(q_pos, "q_pos", dev, torch.int32, (None, None, 3))
+    B, Vp, _ = q_pos.shape
+    _expect(q_uv, "q_uv", dev, torch.int32, (B, None, 2))
+    Vu = q_uv.shape[1]
+    _require(Vu >= 1, "q_uv must hold at least one value a mesh")
+    T = g["cpt"].numel()
+    for k in _UV_INDEX_KEYS:
+        _expect(g[k], k, dev, torch.int64, (T,))
+    for k in _UV_MASK_KEYS:
+        _expect(g[k], k, dev, torch.bool, (T,))
+    _expect(uo_pos, "uo_pos", dev, torch.int64, (None,))
+    _expect(uo_uv, "uo_uv", dev, torch.int64, (None,))
+    _on_the_card(dev, "C3")
+    outs = uv_outputs(B, T, dev)
+    if B == 0:
+        return outs
+    lib = _build.load()
+    with _launch_on(q_uv) as stream:
+        rc = lib.tdr_uv_encode(
+            q_pos.data_ptr(), q_uv.data_ptr(), uo_pos.data_ptr(),
+            uo_uv.data_ptr(),
+            *(g[k].data_ptr() for k in _UV_INDEX_KEYS + _UV_MASK_KEYS),
+            B, Vp, Vu, T, *(o.data_ptr() for o in outs), stream)
+        _build.check(rc, "uv_encode_cuda")
+    uv_encode_cuda.n_launches += 1
+    return outs
+
+
+uv_encode_cuda.n_launches = 0
 
 
 def _uv_numpy(outs: list) -> tuple:

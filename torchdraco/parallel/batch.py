@@ -67,8 +67,8 @@ from ..ops.device import (
     quantized_range_chunk_kernel, widen,
 )
 from ..ops.normals import (
-    RING_BYTES_PER_SLOT, collect_normal_rings, normal_encode_chain_sharded,
-    rings_to_torch,
+    RING_TABLE_BYTES_PER_SLOT, collect_normal_rings,
+    normal_encode_chain_sharded, rings_to_torch,
 )
 from ..ops.rans_lanes import encode_group_entropy_device
 from ..ops.texcoords import (
@@ -680,8 +680,9 @@ class BatchEncoder:
     # first. They cost 169 B a vertex with normals and UVs (int64 ring
     # indices, ring width 6) and 22 B with positions alone, so 8 GiB keeps
     # some 48 topologies of 1M vertices, or 12,000 of 64 x 64, and leaves
-    # 71 GB of an 80 GB card to the working set: a 512-mesh chunk peaks at
-    # 1.7 GB, a resident mesh at most RESIDENT_MAX_BYTES.
+    # 71 GB of an 80 GB card to the working set: a 512-mesh chunk with
+    # normals and UVs peaks at 0.2 GB (1.7 GB before the chains were
+    # kernels), a resident mesh at most RESIDENT_MAX_BYTES.
     DEV_CACHE_BUDGET = 8 << 30
     # a lone mesh of CHUNKED_MIN_VERTS << 2 vertices or more is "huge": the
     # router sends it to _encode_huge; a group of meshes of
@@ -697,19 +698,26 @@ class BatchEncoder:
     # phase 12.3 measures (NVIDIA H100 80GB HBM3, 700 W): positions,
     # gathers, K1's tile tables (about 18 B a vertex, and the buffers of
     # their build) and symbols cost RESIDENT_BYTES_PER_VERTEX (46 B a
-    # vertex on a 1024^2 grid before the tables); each TEX_COORD
-    # attribute RESIDENT_UV_BYTES_PER_VERTEX (712 B with positions on a
-    # 512^2 grid); each NORMAL attribute that
-    # the device chain takes RING_BYTES_PER_SLOT for each of its T x R ring
-    # slots (int64 ring tensors at B = 1, which the chain cannot split; R
-    # is the most corners on one vertex, so one fan or pole vertex sets
-    # it): 155 B a slot on a 512^2 grid with a fan vertex of valence 80,
-    # 3.25 GB, 12.4 KB a vertex, where the plain 1024^2 grid (R = 6) with
-    # normals and UVs peaks at 1.10 GB, 1,051 B a vertex. The chains run
-    # one after the other, so the sum overestimates: by 1.17-1.89x on
-    # those four meshes.
+    # vertex on a 1024^2 grid before the tables). The chains are kernels
+    # (C1, C3), whose memory is their inputs and outputs: each TEX_COORD
+    # attribute costs RESIDENT_UV_BYTES_PER_VERTEX (the upload and its
+    # int32 widening, the int64 unique-value maps, the gather tables of
+    # UV_TABLE_BYTES_PER_STEP a step, 10 B of outputs a step); each
+    # NORMAL attribute that the device chain takes costs
+    # RING_TABLE_BYTES_PER_SLOT for each of its T x R ring slots (R is the
+    # most corners on one vertex, so one fan or pole vertex sets it) and
+    # RESIDENT_NORMAL_BYTES_PER_STEP a step (the int64 tip row, the
+    # int32 positions, the float32 normals, the int64 maps, C1's 9 B of
+    # outputs and their copy by the shard join): 66 B, and the rest for
+    # the allocator's rounding. Measured first-call peaks against the
+    # estimate: 1,024^2 grid with normals and UVs 272.7 MB (260 B a
+    # vertex; 1.10 GB with the plain chains) against 509.6 MB; 512^2
+    # grid with UVs 38.5 against 67.1 MB; 512^2 grid with a fan vertex of
+    # valence 80, normals and UVs 404.9 MB (3.25 GB with the plain
+    # chains) against 457.2 MB.
     RESIDENT_BYTES_PER_VERTEX = 96
-    RESIDENT_UV_BYTES_PER_VERTEX = 768
+    RESIDENT_UV_BYTES_PER_VERTEX = 160
+    RESIDENT_NORMAL_BYTES_PER_STEP = 128
     # encode_corpus holds this many loaded meshes at once on the device
     # planes: two DEVICE_CHUNKs, so that a topology group of DEVICE_CHUNK
     # meshes inside a window fills one chunk
@@ -1259,7 +1267,9 @@ class BatchEncoder:
             elif a.att_type == AttributeType.NORMAL:
                 R = ring_width(topo.view_for(i).as_arrays()[1])
                 if _normal_chain_fits(R, bits):
-                    peak += len(topo.sequences[i]) * R * RING_BYTES_PER_SLOT
+                    peak += len(topo.sequences[i]) * (
+                        R * RING_TABLE_BYTES_PER_SLOT
+                        + self.RESIDENT_NORMAL_BYTES_PER_STEP)
         return peak
 
     def _encode_huge(self, mesh, device=None) -> bytes:
