@@ -13,9 +13,10 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import torchdraco  # noqa: E402
-from torchdraco import native  # noqa: E402
+from torchdraco import native, trace  # noqa: E402
 from torchdraco.device import shard_bounds  # noqa: E402
 from torchdraco.encode import Config as PortConfig  # noqa: E402
 from torchdraco.models import AttributeDomain as PortDomain  # noqa: E402
@@ -288,10 +289,10 @@ def test_histogram_shared_bins_from_the_shape():
 
 def test_topology_keeps_tile_tables_beside_gathers():
     """``_device_tiles`` builds a topology's tables once a device and
-    segment, adds the build's seconds to ``tiles_s``, ``device_bytes``
-    counts them for the LRU, and ``drop_device_tables`` lets them go; the
-    batch path leaves the choice to K1, whose plain version on the CPU
-    asks for no tables."""
+    segment, inside a ``position.tiles`` span, ``device_bytes`` counts
+    them for the LRU, and ``drop_device_tables`` lets them go; the batch
+    path leaves the choice to K1, whose plain version on the CPU asks for
+    no tables."""
     pos, faces = torchdraco.make_mesh_batch(1, 30, 2)
     mesh = torchdraco.build_meshes(pos, faces)[0]
     topo = tbatch.PreparedTopology(mesh)
@@ -299,11 +300,15 @@ def test_topology_keeps_tile_tables_beside_gathers():
     dev = torch.device("cpu")
     g = tbatch._device_gathers(topo, att, dev, 900)
     before = topo.device_bytes()
-    tiles = tbatch._device_tiles(topo, att, dev, 900)
-    built_s = topo.tiles_s
-    assert built_s > 0
-    assert tbatch._device_tiles(topo, att, dev, 900) is tiles
-    assert topo.tiles_s == built_s
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        tiles = tbatch._device_tiles(topo, att, dev, 900)
+        (built,) = trace.spans()
+        assert built.name == "position.tiles"
+        assert built.end_ns > built.start_ns
+        assert tbatch._device_tiles(topo, att, dev, 900) is tiles
+    assert trace.spans() == [built]
+    trace.clear()
     seg = tbatch._device_tiles(topo, att, dev, 900, (100, 700))
     assert seg is not tiles and seg.local.shape == (5, 600)
     assert topo.device_bytes() == before + tiles.nbytes + seg.nbytes

@@ -1,0 +1,193 @@
+"""The port's span recorder (``torchdraco.trace``) on the CPU: nothing is
+kept without a profiler; under ``torch.profiler.profile`` the encode
+routes and ``build_meshes`` give their documented spans, nested in their
+parents and sharing their call's root; the encoders' ``timings`` are the
+totals of those spans; and the spans sit on the clock of the profiler's
+Chrome trace."""
+
+import json
+
+import pytest
+from torch.profiler import ProfilerActivity, profile
+
+import torchdraco
+from torchdraco import trace
+from torchdraco.parallel import batch as tbatch
+
+GROUP = {"encode_meshes_device", "signatures", "topology", "position",
+         "chains", "chains.payloads", "assembly"}
+RESIDENT = {"encode_mesh_device", "signatures", "topology", "position",
+            "chains", "chains.payloads", "assembly", "assembly.rans"}
+
+
+def _arrays(frames: int = 3, n: int = 9):
+    pos, faces = torchdraco.make_mesh_batch(frames, n, seed=4)
+    nrm, uvs = torchdraco.make_normal_uv_batch(pos, n, seed=5)
+    return pos, faces, nrm, uvs
+
+
+@pytest.fixture
+def encoder():
+    trace.clear()
+    yield tbatch.BatchEncoder(device="cpu", route_cache_path=None)
+    trace.clear()
+
+
+def _traced(fn):
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, trace.spans(), prof
+
+
+def _calls(spans) -> dict:
+    """{root id: spans of that call}."""
+    out: dict = {}
+    for s in spans:
+        out.setdefault(s.root, []).append(s)
+    return out
+
+
+def _check_nesting(spans) -> None:
+    by_id = {s.id: s for s in spans}
+    for s in spans:
+        assert s.end_ns >= s.start_ns
+        if s.parent is None:
+            assert s.root == s.id
+            continue
+        p = by_id[s.parent]
+        assert p.root == s.root
+        assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns
+
+
+def test_nothing_is_kept_without_a_profiler(encoder):
+    pos, faces, nrm, uvs = _arrays()
+    assert not trace.recording()
+    meshes = torchdraco.build_meshes(pos, faces, nrm, uvs)
+    encoder.encode_meshes_device(meshes)
+    encoder.encode_mesh_device(meshes[0])
+    assert trace.spans() == [] and trace.dropped() == 0
+    assert encoder.timings["chains_s"] > 0
+
+
+@pytest.mark.parametrize("route", ["group", "resident"])
+def test_encode_routes_give_their_spans(encoder, route):
+    pos, faces, nrm, uvs = _arrays()
+    meshes = torchdraco.build_meshes(pos, faces, nrm, uvs)
+    if route == "group":
+        blobs, spans, _ = _traced(
+            lambda: encoder.encode_meshes_device(meshes))
+        want, name, n = GROUP, "encode_meshes_device", len(meshes)
+    else:
+        blobs, spans, _ = _traced(lambda: [encoder.encode_mesh_device(m)
+                                           for m in meshes])
+        want, name, n = RESIDENT, "encode_mesh_device", 1
+    assert blobs == tbatch.BatchEncoder(
+        device="cpu", route_cache_path=None).encode_meshes_device(meshes)
+    assert encoder.n_host_attributes == 0
+    calls = _calls(spans)
+    assert len(calls) == (1 if route == "group" else len(meshes))
+    for call in calls.values():
+        assert {s.name for s in call} == want
+        root = [s for s in call if s.parent is None]
+        assert [(s.name, s.attrs) for s in root] == [(name, {"meshes": n})]
+        # a payload loop a chain (NORMAL, TEX_COORD), inside ``chains``
+        chains = next(s for s in call if s.name == "chains")
+        assert [s.parent for s in call if s.name == "chains.payloads"] \
+            == [chains.id] * 2
+    _check_nesting(spans)
+
+
+def test_build_meshes_gives_values_and_points_spans():
+    frames = 4
+    pos, faces, nrm, uvs = _arrays(frames)
+    _, spans, _ = _traced(lambda: torchdraco.build_meshes(pos, faces, nrm,
+                                                          uvs))
+    (root,) = [s for s in spans if s.parent is None]
+    assert root.name == "build_meshes" and root.attrs == {"meshes": frames}
+    names = sorted(s.name for s in spans if s.parent == root.id)
+    assert names == ["build.points"] * frames + ["build.values"] * 3 * frames
+    assert all(s.root == root.id for s in spans)
+    _check_nesting(spans)
+
+
+def _seconds(spans, name: str) -> float:
+    return sum(s.end_ns - s.start_ns for s in spans if s.name == name) * 1e-9
+
+
+@pytest.mark.parametrize("route", ["group", "resident"])
+def test_timings_are_the_span_totals(encoder, monkeypatch, route):
+    """K1's plain version builds no tile tables: a stand-in asks for them
+    as the tiled kernel does, so that ``position.tiles`` counts as
+    topology work."""
+    step = tbatch.encode_step_from_q_cuda
+
+    def tiled_step(*args, tiles=None, **kw):
+        tiles()
+        return step(*args, **kw)
+
+    monkeypatch.setattr(tbatch, "encode_step_from_q_cuda", tiled_step)
+    pos, faces, nrm, uvs = _arrays()
+    meshes = torchdraco.build_meshes(pos, faces, nrm, uvs)
+    if route == "group":
+        _, spans, _ = _traced(lambda: encoder.encode_meshes_device(meshes))
+    else:
+        _, spans, _ = _traced(lambda: encoder.encode_mesh_device(meshes[0]))
+    t = encoder.timings
+    tiles = _seconds(spans, "position.tiles")
+    assert tiles > 0
+    topology = _seconds(spans, "topology") + tiles
+    if route == "group":
+        assert set(t) == {"signatures_s", "topology_s", "position_s",
+                          "chains_s", "assembly_s", "h2d_mb"}
+        assert t["signatures_s"] == pytest.approx(
+            _seconds(spans, "signatures"), rel=1e-12, abs=1e-15)
+    else:
+        assert set(t) == {"topology_s", "position_s", "chains_s",
+                          "assembly_s"}
+        topology += _seconds(spans, "signatures")
+    want = {"topology_s": topology,
+            "position_s": _seconds(spans, "position") - tiles,
+            "chains_s": _seconds(spans, "chains"),
+            "assembly_s": _seconds(spans, "assembly")}
+    for k, v in want.items():
+        assert t[k] == pytest.approx(v, rel=1e-12, abs=1e-15), k
+    # untraced, the same keys from the same sites
+    encoder.timings = {}
+    if route == "group":
+        encoder.encode_meshes_device(meshes)
+    else:
+        encoder.encode_mesh_device(meshes[0])
+    assert set(encoder.timings) == set(t)
+    assert trace.spans() == spans
+
+
+def test_spans_sit_on_the_chrome_trace_clock(encoder, tmp_path):
+    pos, faces, nrm, uvs = _arrays()
+
+    def run():
+        meshes = torchdraco.build_meshes(pos, faces, nrm, uvs)
+        return encoder.encode_meshes_device(meshes)
+
+    _, spans, prof = _traced(run)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    doc = json.loads(path.read_text())
+    base_us = doc["baseTimeNanoseconds"] / 1e3
+    events = [e for e in doc["traceEvents"] if e.get("ph") == "X"
+              and e.get("name", "").startswith(trace.PREFIX)]
+    assert len(events) == len(spans)
+    for name in {s.name for s in spans}:
+        mine = sorted(s.start_ns / 1e3 for s in spans if s.name == name)
+        theirs = sorted(e["ts"] + base_us for e in events
+                        if e["name"] == trace.PREFIX + name)
+        assert len(theirs) == len(mine)
+        assert max(abs(a - b) for a, b in zip(mine, theirs)) < 1000.0
+
+
+def test_the_record_is_bounded(monkeypatch):
+    monkeypatch.setattr(trace, "CAP", 3)
+    _, spans, _ = _traced(lambda: torchdraco.build_meshes(*_arrays(2)))
+    assert len(spans) == 3 and trace.dropped() == 2 * 4 + 1 - 3
+    trace.clear()
+    assert trace.spans() == [] and trace.dropped() == 0

@@ -31,6 +31,16 @@ splits the batch path, the lane coder, the encode chains
 (``encode_mesh_device_stream_sharded``); parallel/multihost.py runs the
 corpus over processes; ``dryrun_multichip`` holds all of it to the
 unsharded results.
+
+Spans (trace.py): profile a call with ``torch.profiler`` (any activity)
+and its trace shows the program's stages as ``torchdraco.*`` ranges beside
+the kernels: ``build_meshes`` (``build.values``, ``build.points``),
+``encode_meshes_device`` and ``encode_mesh_device`` (``signatures``,
+``topology``, ``position`` with ``position.tiles``, ``chains`` with
+``chains.payloads``, ``assembly`` with ``assembly.rans``);
+``trace.spans()`` holds the same spans in Unix ns, one constant from
+the trace's clock. Nothing is kept without a profiler.
+``BatchEncoder.timings`` are the per-call totals of those spans.
 """
 
 from __future__ import annotations
@@ -84,21 +94,23 @@ def build_meshes(positions: np.ndarray, faces: np.ndarray,
     """One Mesh per row of ``positions``: POSITION, and with ``normals`` /
     ``uvs`` (one row a mesh) a NORMAL / TEX_COORD attribute per corner,
     parented to the positions."""
+    from . import trace
     from .models import AttributeDomain, AttributeType, MeshBuilder
 
     meshes = []
-    for b, p in enumerate(positions):
-        mb = MeshBuilder()
-        mb.set_connectivity_attribute(faces)
-        pid = mb.add_attribute(p, AttributeType.POSITION,
-                               AttributeDomain.POSITION)
-        if normals is not None:
-            mb.add_attribute(normals[b], AttributeType.NORMAL,
-                             AttributeDomain.CORNER, parents=[pid])
-        if uvs is not None:
-            mb.add_attribute(uvs[b], AttributeType.TEX_COORD,
-                             AttributeDomain.CORNER, parents=[pid])
-        meshes.append(mb.build())
+    with trace.root("build_meshes", meshes=len(positions)):
+        for b, p in enumerate(positions):
+            mb = MeshBuilder()
+            mb.set_connectivity_attribute(faces)
+            pid = mb.add_attribute(p, AttributeType.POSITION,
+                                   AttributeDomain.POSITION)
+            if normals is not None:
+                mb.add_attribute(normals[b], AttributeType.NORMAL,
+                                 AttributeDomain.CORNER, parents=[pid])
+            if uvs is not None:
+                mb.add_attribute(uvs[b], AttributeType.TEX_COORD,
+                                 AttributeDomain.CORNER, parents=[pid])
+            meshes.append(mb.build())
     return meshes
 
 

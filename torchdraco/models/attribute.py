@@ -21,6 +21,8 @@ from enum import IntEnum
 
 import numpy as np
 
+from .. import trace
+
 
 class ComponentType(IntEnum):
     I8 = 1
@@ -128,7 +130,8 @@ class Attribute:
         self.name = name
         self.unique_id = unique_id  # draco per-attribute unique id (wire)
         if dedup and len(values):
-            uniq, inverse = unique_rows_first_occurrence(values)
+            with trace.span("build.values"):
+                uniq, inverse = unique_rows_first_occurrence(values)
             if len(uniq) < len(values):
                 self.values = uniq
                 self.point_map = inverse.astype(np.int64)

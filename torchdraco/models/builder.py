@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import trace
 from .attribute import Attribute, AttributeDomain, AttributeType
 from .mesh import Mesh
 
@@ -44,7 +45,8 @@ class MeshBuilder:
         attributes = self._sorted_attributes()
         faces = self.faces
 
-        attributes, faces = _deduplicate_points(attributes, faces)
+        with trace.span("build.points"):
+            attributes, faces = _deduplicate_points(attributes, faces)
 
         # degenerate-face filter (in point space)
         keep = ((faces[:, 0] != faces[:, 1]) & (faces[:, 1] != faces[:, 2])

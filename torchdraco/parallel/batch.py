@@ -47,7 +47,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from .. import native
+from .. import native, trace
 from ..device import (
     axis_for, replicate, resolve, resolve_axis, shard_bounds, shard_rows,
 )
@@ -111,11 +111,10 @@ class PreparedTopology:
         # str(device) -> gather tensors of the position attribute
         self.dev_gathers: dict[str, dict] = {}
         # (str(device), traversal segment or None) -> K1's tile tables
-        # (ops/device.py predict_tiles), built where its tiled kernel runs;
-        # tiles_s: the seconds their builds took, which the routes count
-        # in topology_s
+        # (ops/device.py predict_tiles), built where its tiled kernel runs
+        # (the span ``position.tiles``, which the routes count in
+        # topology_s)
         self.dev_tiles: dict[tuple, PredictTiles] = {}
-        self.tiles_s = 0.0
         self.normal_rings: dict[int, dict] = {}  # lazy (ops/normals.py)
         self.uv_gathers: dict[int, dict] = {}    # lazy (ops/texcoords.py)
         # (kind, attribute, str(device)) -> the tensors of either
@@ -362,12 +361,11 @@ def _device_tiles(topo: PreparedTopology, pos_att, dev: torch.device,
     only where it takes its tiled kernel (``predict_residual``)."""
     key = (str(dev), span)
     if key not in topo.dev_tiles:
-        t0 = time.perf_counter()
-        g = _device_gathers(topo, pos_att, dev, num_values)
-        if span is not None:
-            g = {k: v[span[0]:span[1]] for k, v in g.items()}
-        topo.dev_tiles[key] = predict_tiles(g)  # ends in a host sync
-        topo.tiles_s += time.perf_counter() - t0
+        with trace.timed("position.tiles"):
+            g = _device_gathers(topo, pos_att, dev, num_values)
+            if span is not None:
+                g = {k: v[span[0]:span[1]] for k, v in g.items()}
+            topo.dev_tiles[key] = predict_tiles(g)  # ends in a host sync
     return topo.dev_tiles[key]
 
 
@@ -575,16 +573,17 @@ def _device_extra_attribute_entries(meshes, idxs, topo: PreparedTopology,
             mesh_axis=axis)
         syms, flips = s.cpu().numpy(), f.cpu().numpy()
         n_mx = (1 << normal_bits) - 1
-        for k in range(n):
-            if not nrm_ok[ni][k]:
-                continue
-            xw = ByteWriter()
-            xw.write_u32(n_mx)
-            xw.write_u32(n_mx // 2)
-            write_normal_flips(flips[k].tolist(), xw)
-            out.setdefault(k, {})[ni] = {
-                "payload": _direct_coded_payload(syms[k]),
-                "xform_meta": bytes(xw.getvalue())}
+        with trace.span("chains.payloads"):
+            for k in range(n):
+                if not nrm_ok[ni][k]:
+                    continue
+                xw = ByteWriter()
+                xw.write_u32(n_mx)
+                xw.write_u32(n_mx // 2)
+                write_normal_flips(flips[k].tolist(), xw)
+                out.setdefault(k, {})[ni] = {
+                    "payload": _direct_coded_payload(syms[k]),
+                    "xform_meta": bytes(xw.getvalue())}
     for ui in uv_idxs:
         q_uv = [widen(q) for q in _upload(
             _host_quantize(uv_batches[ui], uv_bits)[0], uv_bits, axis)[0]]
@@ -593,16 +592,17 @@ def _device_extra_attribute_entries(meshes, idxs, topo: PreparedTopology,
              for d in axis]
         syms, vmin, vmax, ovals, oflags, risky = uv_encode_chain_sharded(
             q_pos, q_uv, g, uo_pos, uo_uv, mesh_axis=axis)
-        for k in range(n):
-            if risky[k]:
-                continue  # host path handles this mesh's UVs exactly
-            xw = ByteWriter()
-            write_tex_orientations(ovals[k][oflags[k]].tolist(), xw)
-            xw.write_u32(int(vmin[k]) & 0xFFFFFFFF)
-            xw.write_u32(int(vmax[k]) & 0xFFFFFFFF)
-            out.setdefault(k, {})[ui] = {
-                "payload": _direct_coded_payload(syms[k]),
-                "xform_meta": bytes(xw.getvalue())}
+        with trace.span("chains.payloads"):
+            for k in range(n):
+                if risky[k]:
+                    continue  # host path handles this mesh's UVs exactly
+                xw = ByteWriter()
+                write_tex_orientations(ovals[k][oflags[k]].tolist(), xw)
+                xw.write_u32(int(vmin[k]) & 0xFFFFFFFF)
+                xw.write_u32(int(vmax[k]) & 0xFFFFFFFF)
+                out.setdefault(k, {})[ui] = {
+                    "payload": _direct_coded_payload(syms[k]),
+                    "xform_meta": bytes(xw.getvalue())}
     return out
 
 
@@ -631,6 +631,23 @@ def _host_entropy_payloads(dev_c: dict, bits: int) -> list[bytes]:
         return list(pool.map(one, syms))
 
 
+def _stage_timings(totals: dict, resident: bool = False) -> dict:
+    """An encode root's ``timings`` from its span totals (ns): the stages
+    in seconds, K1's tile tables (``position.tiles``) counted as topology
+    work and not as the position path's, and, in the resident route,
+    the signatures too."""
+    s = {k: v * 1e-9 for k, v in totals.items()}
+    tiles = s.get("position.tiles", 0.0)
+    out = {"signatures_s": s.get("signatures", 0.0),
+           "topology_s": s.get("topology", 0.0) + tiles,
+           "position_s": s.get("position", 0.0) - tiles,
+           "chains_s": s.get("chains", 0.0),
+           "assembly_s": s.get("assembly", 0.0)}
+    if resident:
+        out["topology_s"] += out.pop("signatures_s")
+    return out
+
+
 class BatchEncoder:
     """Encodes meshes with topology-group batching, the POSITION, NORMAL
     and TEX_COORD attributes on the device, and single meshes through the
@@ -646,7 +663,15 @@ class BatchEncoder:
     their readback and host payloads; the chunked route's ``pass1_s`` ...
     ``pass3_s``) and, for ``encode_meshes_device``, ``h2d_mb``: the
     megabytes of quantized positions uploaded, in their layout
-    (``upload_layout``).
+    (``upload_layout``). In ``encode_meshes_device`` and
+    ``encode_mesh_device`` they are the per-call totals of the call's spans
+    (``torchdraco.trace``): ``signatures_s``, ``chains_s`` and
+    ``assembly_s`` those of the spans of that name, ``position_s`` the
+    ``position`` spans less K1's tile-table builds (``position.tiles``),
+    which count in ``topology_s`` beside ``topology`` (and, in
+    ``encode_mesh_device``, ``signatures``). To see the spans themselves,
+    profile the call with ``torch.profiler`` and look for the
+    ``torchdraco.*`` ranges in its trace.
 
     ``use_device``: the plane of ``encode_corpus``: True (the default) the
     device plane, False the host plane, ``"auto"`` the router
@@ -872,20 +897,19 @@ class BatchEncoder:
                 f"normal {normal_bits} [7..16], texcoord {uv_bits})")
         cfg = _merged_quant_cfg(self.cfg, bits, normal_bits, uv_bits)
 
-        t = self.timings = dict.fromkeys(
-            ("signatures_s", "topology_s", "position_s", "chains_s",
-             "assembly_s", "h2d_mb"), 0.0)
-        clock = time.perf_counter
-        t0 = clock()
-        groups: dict[str, list[int]] = {}
-        for idx, m in enumerate(meshes):
-            groups.setdefault(topology_signature(m), []).append(idx)
-        t["signatures_s"] = clock() - t0
-        out: list[bytes | None] = [None] * len(meshes)
-        for sig, idxs in groups.items():
-            self._encode_group_device(meshes, sig, idxs, out, bits,
-                                      normal_bits, uv_bits, cfg, entropy,
-                                      axis)
+        h2d_bytes = 0
+        with trace.root("encode_meshes_device", meshes=len(meshes)) as call:
+            with trace.timed("signatures"):
+                groups: dict[str, list[int]] = {}
+                for idx, m in enumerate(meshes):
+                    groups.setdefault(topology_signature(m), []).append(idx)
+            out: list[bytes | None] = [None] * len(meshes)
+            for sig, idxs in groups.items():
+                h2d_bytes += self._encode_group_device(
+                    meshes, sig, idxs, out, bits, normal_bits, uv_bits, cfg,
+                    entropy, axis)
+        self.timings = dict(_stage_timings(call.totals),
+                            h2d_mb=h2d_bytes / 1e6)
         return out
 
     def _device_plane(self, meshes: list, device=None) -> list:
@@ -906,72 +930,64 @@ class BatchEncoder:
 
     def _encode_group_device(self, meshes, sig, idxs, out, bits,
                              normal_bits, uv_bits, cfg, entropy,
-                             axis) -> None:
+                             axis) -> int:
         """One topology group of ``encode_meshes_device`` into ``out``,
-        over the devices ``axis``."""
-        t = self.timings
-        clock = time.perf_counter
-        t0 = clock()
-        topo = self._topo_cache.get(sig)
-        if topo is None:
-            topo = PreparedTopology(meshes[idxs[0]])
-            self._topo_cache[sig] = topo
-        t["topology_s"] += clock() - t0
+        over the devices ``axis``; returns the bytes of quantized positions
+        uploaded."""
+        with trace.timed("topology"):
+            topo = self._topo_cache.get(sig)
+            if topo is None:
+                topo = PreparedTopology(meshes[idxs[0]])
+                self._topo_cache[sig] = topo
         pos_att0 = meshes[idxs[0]].position_attribute()
         batch = np.stack([meshes[i].position_attribute().values
                           .astype(np.float32) for i in idxs])
         bits_byte = bytes([bits])
+        h2d_bytes = 0
         for c0 in range(0, len(idxs), self.DEVICE_CHUNK):
             chunk = idxs[c0:c0 + self.DEVICE_CHUNK]
-            tiles_s = topo.tiles_s
-            t0 = clock()
-            dev_c = device_encode_group(
-                batch[c0:c0 + self.DEVICE_CHUNK], topo, pos_att0,
-                bits=bits, mesh_axis=axis)
-            if entropy == "device":
-                payloads = encode_group_entropy_device(
-                    dev_c["symbols"], dev_c["counts"], mesh_axis=axis)
-            else:
-                payloads = _host_entropy_payloads(dev_c, bits)
-            t1 = clock()
-            # the NORMAL and TEX_COORD chains read the positions the
-            # fused step uploaded: quantized once, uploaded once
-            extra = _device_extra_attribute_entries(
-                meshes, chunk, topo, bits=bits, normal_bits=normal_bits,
-                uv_bits=uv_bits, q_pos=dev_c["q_dev"], mesh_axis=axis)
-            t2 = clock()
-            for k, i in enumerate(chunk):
-                w = ByteWriter()
-                w.write_u32(int(dev_c["vmin"][k]) & 0xFFFFFFFF)
-                w.write_u32(int(dev_c["vmax"][k]) & 0xFFFFFFFF)
-                pos_idx = next(
-                    j for j, a in enumerate(meshes[i].attributes)
-                    if a.att_type == AttributeType.POSITION)
-                # quantization already ran on the host: hand the
-                # assembly its metadata bytes and values, so it does
-                # not re-quantize the mesh
-                port_meta = (dev_c["mins"][k].astype("<f4").tobytes()
-                             + dev_c["delta_max"][k:k + 1]
-                             .astype("<f4").tobytes() + bits_byte)
-                pre = {pos_idx: {"payload": payloads[k],
-                                 "xform_meta": bytes(w.getvalue()),
-                                 "port_meta": port_meta,
-                                 "port_values": dev_c["q"][k]}}
-                pre.update(extra.get(k, {}))
-                self.n_host_attributes += sum(
-                    1 for j, a in enumerate(meshes[i].attributes)
-                    if a.att_type in _CHAIN_TYPES and j not in pre)
-                out[i] = encode_with_topology(meshes[i], topo, cfg=cfg,
-                                              precomputed=pre)
-            # K1's tile tables, built on the topology's first call, are
-            # topology work
-            tiles_s = topo.tiles_s - tiles_s
-            t["topology_s"] += tiles_s
-            t["position_s"] += t1 - t0 - tiles_s
-            t["chains_s"] += t2 - t1
-            t["h2d_mb"] += dev_c["h2d_bytes"] / 1e6
-            t["assembly_s"] += clock() - t2
+            with trace.timed("position"):
+                dev_c = device_encode_group(
+                    batch[c0:c0 + self.DEVICE_CHUNK], topo, pos_att0,
+                    bits=bits, mesh_axis=axis)
+                if entropy == "device":
+                    payloads = encode_group_entropy_device(
+                        dev_c["symbols"], dev_c["counts"], mesh_axis=axis)
+                else:
+                    payloads = _host_entropy_payloads(dev_c, bits)
+            h2d_bytes += dev_c["h2d_bytes"]
+            with trace.timed("chains"):
+                # the NORMAL and TEX_COORD chains read the positions the
+                # fused step uploaded: quantized once, uploaded once
+                extra = _device_extra_attribute_entries(
+                    meshes, chunk, topo, bits=bits, normal_bits=normal_bits,
+                    uv_bits=uv_bits, q_pos=dev_c["q_dev"], mesh_axis=axis)
+            with trace.timed("assembly"):
+                for k, i in enumerate(chunk):
+                    w = ByteWriter()
+                    w.write_u32(int(dev_c["vmin"][k]) & 0xFFFFFFFF)
+                    w.write_u32(int(dev_c["vmax"][k]) & 0xFFFFFFFF)
+                    pos_idx = next(
+                        j for j, a in enumerate(meshes[i].attributes)
+                        if a.att_type == AttributeType.POSITION)
+                    # quantization already ran on the host: hand the
+                    # assembly its metadata bytes and values, so it does
+                    # not re-quantize the mesh
+                    port_meta = (dev_c["mins"][k].astype("<f4").tobytes()
+                                 + dev_c["delta_max"][k:k + 1]
+                                 .astype("<f4").tobytes() + bits_byte)
+                    pre = {pos_idx: {"payload": payloads[k],
+                                     "xform_meta": bytes(w.getvalue()),
+                                     "port_meta": port_meta,
+                                     "port_values": dev_c["q"][k]}}
+                    pre.update(extra.get(k, {}))
+                    self.n_host_attributes += sum(
+                        1 for j, a in enumerate(meshes[i].attributes)
+                        if a.att_type in _CHAIN_TYPES and j not in pre)
+                    out[i] = encode_with_topology(meshes[i], topo, cfg=cfg,
+                                                  precomputed=pre)
         self._dev_cache_touch(sig, topo)
+        return h2d_bytes
 
     # ------------------------------------------------------------------
     # one large mesh
@@ -979,10 +995,12 @@ class BatchEncoder:
     def _topo_for(self, mesh):
         """(cache key, PreparedTopology) of ``mesh`` under the device
         routes' connectivity (the default: their cfg holds depths only)."""
-        key = topology_signature(mesh)
-        topo = self._topo_cache.get(key)
-        if topo is None:
-            topo = self._topo_cache[key] = PreparedTopology(mesh)
+        with trace.timed("signatures"):
+            key = topology_signature(mesh)
+        with trace.timed("topology"):
+            topo = self._topo_cache.get(key)
+            if topo is None:
+                topo = self._topo_cache[key] = PreparedTopology(mesh)
         return key, topo
 
     def _resolve_depths(self, bits: int | None) -> dict:
@@ -1013,8 +1031,9 @@ class BatchEncoder:
         an entry are coded by the host encoder inside the assembly, at
         ``self.cfg``'s depths."""
         w = ByteWriter()
-        encode_symbols(symbols.astype(np.uint64).ravel(), symbols.shape[-1],
-                       DIRECT_CODED, w)
+        with trace.span("assembly.rans"):
+            encode_symbols(symbols.astype(np.uint64).ravel(),
+                           symbols.shape[-1], DIRECT_CODED, w)
         meta = ByteWriter()
         meta.write_u32(int(vmin) & 0xFFFFFFFF)
         meta.write_u32(int(vmax) & 0xFFFFFFFF)
@@ -1043,45 +1062,42 @@ class BatchEncoder:
         depths = self._resolve_depths(bits)
         bits = depths["bits"]
         dev = self._dev(device)
-        t = self.timings = dict.fromkeys(
-            ("topology_s", "position_s", "chains_s", "assembly_s"), 0.0)
-        clock = time.perf_counter
-        t0 = clock()
-        key, topo = self._topo_for(mesh)
-        pos_att = mesh.position_attribute()
-        pos = np.ascontiguousarray(pos_att.values, np.float32)[None]
-        tiles_s = topo.tiles_s
-        t1 = clock()
-        dev_c = device_encode_group(pos, topo, pos_att, bits=bits,
-                                    device=dev)
-        syms = dev_c["symbols"][0][0]
-        if bits + 1 <= 16:  # zigzag symbols < 2^(bits+1): half the bytes
-            syms = syms.to(torch.uint16)
-        n_counted = int(dev_c["counts"][0].sum())
-        syms = syms.cpu().numpy()
-        if n_counted != syms.size:
-            raise RuntimeError(f"histogram lost symbols: {n_counted} of "
-                               f"{syms.size} counted")
-        t2 = clock()
-        extra = _device_extra_attribute_entries(
-            [mesh], [0], topo, bits=bits, normal_bits=depths["normal_bits"],
-            uv_bits=depths["uv_bits"], device=dev, q_pos=dev_c["q_dev"])
-        pre = extra.get(0, {})
-        self.n_host_attributes += sum(
-            1 for j, a in enumerate(mesh.attributes)
-            if a.att_type in _CHAIN_TYPES and j not in pre)
-        t3 = clock()
-        port = {"port_meta": dev_c["mins"][0].astype("<f4").tobytes()
-                + dev_c["delta_max"][:1].astype("<f4").tobytes()
-                + bytes([bits]),
-                "port_values": dev_c["q"][0]}
-        blob = self._assemble_precomputed(
-            mesh, topo, syms, int(dev_c["vmin"][0]), int(dev_c["vmax"][0]),
-            bits, extra_pre=pre, port=port)
-        self._dev_cache_touch(key, topo)
-        tiles_s = topo.tiles_s - tiles_s  # K1's tables: topology work
-        t.update(topology_s=t1 - t0 + tiles_s, position_s=t2 - t1 - tiles_s,
-                 chains_s=t3 - t2, assembly_s=clock() - t3)
+        with trace.root("encode_mesh_device", meshes=1) as call:
+            key, topo = self._topo_for(mesh)
+            with trace.timed("position"):
+                pos_att = mesh.position_attribute()
+                pos = np.ascontiguousarray(pos_att.values, np.float32)[None]
+                dev_c = device_encode_group(pos, topo, pos_att, bits=bits,
+                                            device=dev)
+                syms = dev_c["symbols"][0][0]
+                # zigzag symbols < 2^(bits+1): half the bytes
+                if bits + 1 <= 16:
+                    syms = syms.to(torch.uint16)
+                n_counted = int(dev_c["counts"][0].sum())
+                syms = syms.cpu().numpy()
+                if n_counted != syms.size:
+                    raise RuntimeError(f"histogram lost symbols: "
+                                       f"{n_counted} of {syms.size} counted")
+            with trace.timed("chains"):
+                extra = _device_extra_attribute_entries(
+                    [mesh], [0], topo, bits=bits,
+                    normal_bits=depths["normal_bits"],
+                    uv_bits=depths["uv_bits"], device=dev,
+                    q_pos=dev_c["q_dev"])
+                pre = extra.get(0, {})
+                self.n_host_attributes += sum(
+                    1 for j, a in enumerate(mesh.attributes)
+                    if a.att_type in _CHAIN_TYPES and j not in pre)
+            with trace.timed("assembly"):
+                port = {"port_meta": dev_c["mins"][0].astype("<f4").tobytes()
+                        + dev_c["delta_max"][:1].astype("<f4").tobytes()
+                        + bytes([bits]),
+                        "port_values": dev_c["q"][0]}
+                blob = self._assemble_precomputed(
+                    mesh, topo, syms, int(dev_c["vmin"][0]),
+                    int(dev_c["vmax"][0]), bits, extra_pre=pre, port=port)
+                self._dev_cache_touch(key, topo)
+        self.timings = _stage_timings(call.totals, resident=True)
         return blob
 
     def encode_mesh_device_chunked(self, mesh, bits: int | None = None,
@@ -1216,42 +1232,46 @@ class BatchEncoder:
         ``encode()``; errors raise."""
         bits = self._resolve_depths(bits)["bits"]
         axis = resolve_axis(mesh_axis)
-        clock = time.perf_counter
-        t0 = clock()
-        key, topo = self._topo_for(mesh)
-        pos_att = mesh.position_attribute()
-        pos = np.ascontiguousarray(pos_att.values, np.float32)[None]
-        V, C = pos.shape[1:]
-        tiles_s = topo.tiles_s
-        t1 = clock()
-        q, mins, delta_max, vmin, vmax = _host_quantize(pos, bits)
-        vmin = np.asarray(vmin, np.int32)
-        vmax = np.asarray(vmax, np.int32)
-        # a segment's own tile tables, where K1 tiles
-        T = _device_gathers(topo, pos_att, axis[0], V)["order"].numel()
-        parts, counts = encode_step_stream_sharded(
-            q, [_device_gathers(topo, pos_att, d, V) for d in axis], vmin,
-            vmax, bits=bits, mesh_axis=axis,
-            tiles=[functools.partial(_device_tiles, topo, pos_att, d, V, span)
-                   for d, span in zip(axis, shard_bounds(T, len(axis)))])
-        if bits + 1 <= 16:  # zigzag symbols < 2^(bits+1): half the bytes
-            parts = [p.to(torch.uint16) for p in parts]
-        symbols = np.concatenate([p[0].cpu().numpy() for p in parts])
-        n_counted = int(counts.sum())
-        if n_counted != symbols.size:
-            raise RuntimeError(f"stream-sharded histogram lost symbols: "
-                               f"{n_counted} of {symbols.size} counted")
-        t2 = clock()
-        port = {"port_meta": mins[0].astype("<f4").tobytes()
-                + delta_max[:1].astype("<f4").tobytes() + bytes([bits]),
-                "port_values": q[0]}
-        blob = self._assemble_precomputed(mesh, topo, symbols, int(vmin[0]),
-                                          int(vmax[0]), bits, port=port)
-        self._dev_cache_touch(key, topo)
-        tiles_s = topo.tiles_s - tiles_s  # K1's tables: topology work
-        self.timings = {"topology_s": t1 - t0 + tiles_s,
-                        "position_s": t2 - t1 - tiles_s,
-                        "assembly_s": clock() - t2}
+        with trace.root("encode_mesh_device_stream_sharded",
+                        meshes=1) as call:
+            clock = time.perf_counter
+            t0 = clock()
+            key, topo = self._topo_for(mesh)
+            pos_att = mesh.position_attribute()
+            pos = np.ascontiguousarray(pos_att.values, np.float32)[None]
+            V, C = pos.shape[1:]
+            t1 = clock()
+            q, mins, delta_max, vmin, vmax = _host_quantize(pos, bits)
+            vmin = np.asarray(vmin, np.int32)
+            vmax = np.asarray(vmax, np.int32)
+            # a segment's own tile tables, where K1 tiles
+            T = _device_gathers(topo, pos_att, axis[0], V)["order"].numel()
+            parts, counts = encode_step_stream_sharded(
+                q, [_device_gathers(topo, pos_att, d, V) for d in axis], vmin,
+                vmax, bits=bits, mesh_axis=axis,
+                tiles=[functools.partial(_device_tiles, topo, pos_att, d, V,
+                                         span)
+                       for d, span in zip(axis, shard_bounds(T, len(axis)))])
+            if bits + 1 <= 16:  # zigzag symbols < 2^(bits+1): half the bytes
+                parts = [p.to(torch.uint16) for p in parts]
+            symbols = np.concatenate([p[0].cpu().numpy() for p in parts])
+            n_counted = int(counts.sum())
+            if n_counted != symbols.size:
+                raise RuntimeError(f"stream-sharded histogram lost symbols: "
+                                   f"{n_counted} of {symbols.size} counted")
+            t2 = clock()
+            port = {"port_meta": mins[0].astype("<f4").tobytes()
+                    + delta_max[:1].astype("<f4").tobytes() + bytes([bits]),
+                    "port_values": q[0]}
+            blob = self._assemble_precomputed(mesh, topo, symbols,
+                                              int(vmin[0]), int(vmax[0]),
+                                              bits, port=port)
+            self._dev_cache_touch(key, topo)
+            # K1's tables: topology work
+            tiles_s = call.totals.get("position.tiles", 0) * 1e-9
+            self.timings = {"topology_s": t1 - t0 + tiles_s,
+                            "position_s": t2 - t1 - tiles_s,
+                            "assembly_s": clock() - t2}
         return blob
 
     def _resident_peak_bytes(self, mesh) -> int:
