@@ -1,7 +1,8 @@
 """The port's span recorder (``torchdraco.trace``) on the CPU: nothing is
 kept without a profiler; under ``torch.profiler.profile`` the encode
 routes and ``build_meshes`` give their documented spans, nested in their
-parents and sharing their call's root; the encoders' ``timings`` are the
+parents and sharing their call's root; the dedup spans count the rows
+they were given and the distinct rows they found; the encoders' ``timings`` are the
 totals of those spans; and the spans sit on the clock of the profiler's
 Chrome trace."""
 
@@ -11,7 +12,7 @@ import pytest
 from torch.profiler import ProfilerActivity, profile
 
 import torchdraco
-from torchdraco import trace
+from torchdraco import native, trace
 from torchdraco.parallel import batch as tbatch
 
 GROUP = {"encode_meshes_device", "signatures", "topology", "position",
@@ -109,6 +110,45 @@ def test_build_meshes_gives_values_and_points_spans():
     assert names == ["build.points"] * frames + ["build.values"] * 3 * frames
     assert all(s.root == root.id for s in spans)
     _check_nesting(spans)
+
+
+@pytest.mark.parametrize("hashed", [True, False])
+def test_dedup_spans_count_rows_and_merges(monkeypatch, hashed):
+    """``build.values`` and ``build.points`` carry the rows they were
+    given, the distinct rows found and whether the native hash ran, on
+    frames with seams (one attribute copied between vertices) and
+    duplicated corners (every attribute copied)."""
+    if not hashed:
+        monkeypatch.setattr(native, "load_library", lambda: None)
+    frames = 2
+    pos, faces, nrm, uvs = _arrays(frames)
+    pos[:, 20] = pos[:, 7]
+    nrm[:, 10] = nrm[:, 2]
+    uvs[:, 5] = uvs[:, 3]
+    for a in (pos, nrm, uvs):
+        a[:, 30] = a[:, 40]
+    _, spans, _ = _traced(lambda: torchdraco.build_meshes(pos, faces, nrm,
+                                                          uvs))
+    spans = sorted(spans, key=lambda s: s.start_ns)
+    values = [s.attrs for s in spans if s.name == "build.values"]
+    points = [s.attrs for s in spans if s.name == "build.points"]
+    n = pos.shape[1]
+    assert int(faces.max()) + 1 == n
+
+    def distinct(*arrays) -> int:
+        return len({b"".join(a[i].tobytes() for a in arrays)
+                    for i in range(n)})
+
+    want_values, want_points = [], []
+    for b in range(frames):
+        want_values += [dict(rows=n, unique=distinct(a[b]), native=hashed)
+                        for a in (pos, nrm, uvs)]
+        want_points.append(dict(rows=n, unique=distinct(pos[b], nrm[b],
+                                                        uvs[b]),
+                                native=hashed))
+    assert values == want_values and points == want_points
+    assert [v["unique"] for v in values[:3]] == [n - 2, n - 2, n - 2]
+    assert points[0]["unique"] == n - 1
 
 
 def _seconds(spans, name: str) -> float:

@@ -21,7 +21,7 @@ from enum import IntEnum
 
 import numpy as np
 
-from .. import trace
+from .. import native, trace
 
 
 class ComponentType(IntEnum):
@@ -90,24 +90,47 @@ class AttributeDomain(IntEnum):
     CORNER = 1
 
 
-def unique_rows_first_occurrence(arr: np.ndarray):
-    """Unique rows of (P, N) ``arr`` in first-appearance order.
+def first_occurrences(arr: np.ndarray):
+    """First-occurrence dedup of the rows of 2-D ``arr``.
 
-    Returns (unique_values (U, N), inverse (P,)) with
-    unique_values[inverse] == arr up to -0.0/0.0 merging for float dtypes
-    (the reference compares by value equality, mod.rs:394-452)."""
+    Returns (first, inverse, native): ``first`` (U,) the ascending index
+    of each distinct row's first appearance, ``inverse`` (P,) int64 the
+    rank of each row's distinct row in that order, and whether the native
+    hash pass ran. Rows are equal when their bytes are, but that float
+    -0.0 counts as +0.0 (the reference compares by value equality,
+    mod.rs:394-452); NaN payloads compare as bytes. Without the native
+    library (or for a dtype it does not take) the numpy twin runs: a sort
+    of each row's bytes."""
     arr = np.ascontiguousarray(arr)
+    floating = np.issubdtype(arr.dtype, np.floating)
+    if arr.ndim == 2 and not arr.dtype.hasobject and (
+            not floating or arr.dtype.isnative):
+        found = native.unique_rows(arr.view(np.uint8),
+                                   arr.dtype.itemsize if floating else 0)
+        if found is not None:
+            return (*found, True)
     key = arr
-    if np.issubdtype(arr.dtype, np.floating):
+    if floating:
         key = arr.copy()
         key[key == 0] = 0.0  # merge -0.0 with +0.0 like value equality
-        key = np.ascontiguousarray(key)
     void = key.view(np.dtype((np.void, key.dtype.itemsize * key.shape[1]))).ravel()
     _, first_idx, inverse = np.unique(void, return_index=True, return_inverse=True)
     order = np.argsort(first_idx, kind="stable")
     rank = np.empty(len(order), dtype=np.int64)
     rank[order] = np.arange(len(order))
-    return arr[np.sort(first_idx)], rank[inverse.ravel()]
+    return np.sort(first_idx), rank[inverse.ravel()], False
+
+
+def unique_rows_first_occurrence(arr: np.ndarray):
+    """Unique rows of (P, N) ``arr`` in first-appearance order.
+
+    Returns (unique_values (U, N), inverse (P,)) with
+    unique_values[inverse] == arr up to -0.0/0.0 merging for float dtypes
+    (``first_occurrences``); ``arr`` itself (made contiguous) where no
+    row repeats."""
+    arr = np.ascontiguousarray(arr)
+    first, inverse, _ = first_occurrences(arr)
+    return (arr if len(first) == len(arr) else arr[first]), inverse
 
 
 class Attribute:
@@ -130,14 +153,13 @@ class Attribute:
         self.name = name
         self.unique_id = unique_id  # draco per-attribute unique id (wire)
         if dedup and len(values):
-            with trace.span("build.values"):
-                uniq, inverse = unique_rows_first_occurrence(values)
-            if len(uniq) < len(values):
-                self.values = uniq
-                self.point_map = inverse.astype(np.int64)
-            else:
-                self.values = values
-                self.point_map = None
+            with trace.span("build.values", rows=len(values)) as s:
+                first, inverse, hashed = first_occurrences(values)
+                s.note(unique=len(first), native=hashed)
+                merged = len(first) < len(values)
+                # no copy where every row is distinct: the caller's array
+                self.values = values[first] if merged else values
+            self.point_map = inverse if merged else None
         else:
             self.values = values
             self.point_map = None
@@ -179,12 +201,16 @@ class Attribute:
         """(P, N) array expanded to the point level."""
         return self.values[self.unique_indices()]
 
-    def value_bytes_per_point(self) -> np.ndarray:
-        """(P,) void view of each point's value bytes (for point hashing)."""
-        per_point = np.ascontiguousarray(self.values_per_point())
-        return per_point.view(
-            np.dtype((np.void, per_point.dtype.itemsize * per_point.shape[1]))
-        ).ravel()
+    def value_bytes_per_point(self, num_points: int) -> np.ndarray:
+        """(num_points, W) uint8: the value bytes of each of the first
+        ``num_points`` points (for point hashing)."""
+        if self.point_map is None:
+            per_point = self.values[:num_points]
+        else:
+            per_point = self.values[self.point_map[:num_points]]
+        per_point = np.ascontiguousarray(per_point)
+        return per_point.view(np.uint8).reshape(
+            len(per_point), per_point.dtype.itemsize * per_point.shape[1])
 
     # --- mutation -------------------------------------------------------
     def select_points(self, keep_idx: np.ndarray) -> None:

@@ -13,7 +13,8 @@ from __future__ import annotations
 import numpy as np
 
 from .. import trace
-from .attribute import Attribute, AttributeDomain, AttributeType
+from .attribute import (Attribute, AttributeDomain, AttributeType,
+                        first_occurrences)
 from .mesh import Mesh
 
 
@@ -45,8 +46,8 @@ class MeshBuilder:
         attributes = self._sorted_attributes()
         faces = self.faces
 
-        with trace.span("build.points"):
-            attributes, faces = _deduplicate_points(attributes, faces)
+        with trace.span("build.points") as s:
+            attributes, faces = _deduplicate_points(attributes, faces, s)
 
         # degenerate-face filter (in point space)
         keep = ((faces[:, 0] != faces[:, 1]) & (faces[:, 1] != faces[:, 2])
@@ -76,41 +77,28 @@ class MeshBuilder:
         return atts
 
 
-def _deduplicate_points(attributes: list[Attribute], faces: np.ndarray):
+def _deduplicate_points(attributes: list[Attribute], faces: np.ndarray,
+                        span):
     """Merge points whose values agree across *all* attributes
-    (builder.rs:194-279 hashes every attribute's bytes per point)."""
+    (builder.rs:194-279 hashes every attribute's bytes per point): the
+    rows of each point's bytes through ``first_occurrences``. Notes
+    ``rows``, ``unique`` and ``native`` on ``span`` (the open
+    ``build.points``) where it ran."""
     if not attributes or len(faces) == 0:
         return attributes, faces
     num_points = int(faces.max()) + 1
 
-    keys = []
-    for att in attributes:
-        if att.num_points >= num_points:
-            keys.append(att.value_bytes_per_point()[:num_points])
+    # each point's raw value bytes across all attributes, one row a point
+    keys = [att.value_bytes_per_point(num_points) for att in attributes
+            if att.num_points >= num_points]
     if not keys:
         return attributes, faces
-    # concatenate each point's raw value bytes across all attributes
-    blobs = [np.ascontiguousarray(k).tobytes() for k in keys]
-    widths = [len(b) // num_points for b in blobs]
-    total = sum(widths)
-    buf = np.empty((num_points, total), dtype=np.uint8)
-    off = 0
-    for b, wdt in zip(blobs, widths):
-        buf[:, off:off + wdt] = np.frombuffer(b, dtype=np.uint8).reshape(num_points, wdt)
-        off += wdt
-    combined = np.ascontiguousarray(buf).view(np.dtype((np.void, total))).ravel()
-    _, first_idx, inverse = np.unique(
-        combined, return_index=True, return_inverse=True)
-
-    if len(first_idx) == num_points:
+    buf = np.concatenate(keys, axis=1)
+    # unique points numbered in first-appearance order
+    keep, point_mapping, hashed = first_occurrences(buf)
+    span.note(rows=num_points, unique=len(keep), native=hashed)
+    if len(keep) == num_points:
         return attributes, faces  # no duplicates
-
-    # renumber unique points in first-appearance order
-    order = np.argsort(first_idx, kind="stable")
-    rank = np.empty(len(order), dtype=np.int64)
-    rank[order] = np.arange(len(order))
-    point_mapping = rank[inverse.ravel()]
-    keep = np.sort(first_idx)
 
     for att in attributes:
         if att.num_points >= num_points:

@@ -99,6 +99,8 @@ def load_library():
         lib.tdn_predict_wrapped_zigzag.argtypes = [
             i32p, i64, i64, i32p, i32p, i32p, i32p, i32p, u8p, u8p, i64,
             u64p, i32p, i32p]
+        lib.tdn_unique_rows.restype = i64
+        lib.tdn_unique_rows.argtypes = [u8p, i64, i64, i32, i64p, i64p]
         _lib = lib
     except Exception as exc:
         # fall back to the pure-Python paths, but loudly: a silent 15x
@@ -184,6 +186,28 @@ def pack12(q: np.ndarray):
         hi = np.concatenate([hi, np.zeros((B, 1), dtype=np.uint8)], axis=1)
     np.bitwise_or(hi[:, 0::2], hi[:, 1::2] << 4, out=hb)
     return lo, hb if q.ndim > 1 else hb[0]
+
+
+def unique_rows(rows: np.ndarray, float_bytes: int):
+    """First-occurrence dedup of the rows of ``rows``, (n, w) uint8
+    C-contiguous, in one hashed pass (csrc/dedup.cpp). ``float_bytes``
+    (2, 4 or 8) reads the rows as floats of that size, whose -0.0
+    elements count as +0.0; 0 compares raw bytes. Returns (first int64
+    (u,): the ascending index of each distinct row's first appearance,
+    inverse int64 (n,): each row's rank in that order), or None without
+    a toolchain or for inputs the C path leaves to the numpy twin
+    (``models.attribute.first_occurrences``)."""
+    lib = load_library()
+    if lib is None:
+        return None
+    n, w = rows.shape
+    first = np.empty(n, dtype=np.int64)
+    inverse = np.empty(n, dtype=np.int64)
+    u = lib.tdn_unique_rows(_u8p(rows), n, w, float_bytes,
+                            first.ctypes.data, inverse.ctypes.data)
+    if u < 0:
+        return None
+    return first[:u], inverse
 
 
 def rans_encode(symbols: np.ndarray, freqs: np.ndarray, cums: np.ndarray,

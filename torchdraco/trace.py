@@ -1,6 +1,7 @@
 """Spans of the program's stages, on the clock of the profiler's trace.
 
-``with span(name, **attrs):`` marks one stage. While a torch profiler
+``with span(name, **attrs) as s:`` marks one stage, and ``s.note(**attrs)``
+adds what the stage found to its attributes. While a torch profiler
 records (any ``torch.profiler.profile``, on the CPU or the card: there
 is no other switch), each span is kept in memory as a ``Span``: its
 name, its start and end in Unix ns, its id, its parent's id and the id of
@@ -25,7 +26,6 @@ parent and is its own root.
 
 from __future__ import annotations
 
-import contextlib
 import itertools
 import threading
 import time
@@ -53,7 +53,24 @@ _dropped = 0
 _ids = itertools.count(1)
 _lock = threading.Lock()
 _local = threading.local()
-_OFF = contextlib.nullcontext()  # a span while no profiler records
+
+
+class _Off:
+    """A span while no profiler records: keeps nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_Off":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def note(self, **attrs) -> None:
+        pass
+
+
+_OFF = _Off()
 
 
 def recording() -> bool:
@@ -128,6 +145,10 @@ class _Open:
             self._fn = record_function(PREFIX + self.name)
             self._fn.__enter__()
         return self
+
+    def note(self, **attrs) -> None:
+        """Adds ``attrs`` to the span's attributes (what it found)."""
+        self.attrs.update(attrs)
 
     def __exit__(self, *exc) -> bool:
         stack, roots = _stacks()
