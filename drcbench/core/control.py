@@ -16,8 +16,8 @@ from . import harness
 
 class Control:
     """Wraps a cell's entry: ``prepare`` computes the control's outputs of
-    each request (its k-th call is request k of the traffic), ``run``
-    returns them."""
+    each request (its k-th call is request k of the traffic, its frames
+    named by (take, frame) pairs), ``run`` returns them."""
 
     def __init__(self, entry, config: dict, traffic: dict, seed: int,
                  workers: int) -> None:
@@ -26,7 +26,7 @@ class Control:
         self.workers = workers
         self.made = 0
 
-    def prepare(self, faces, items):
+    def prepare(self, takes):
         ids = harness.request_frames(self.traffic, self.made)
         self.made += 1
         if self.made == 1:  # every request's frames in one pool

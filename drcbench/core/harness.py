@@ -5,6 +5,11 @@ check of every output of the window, and one JSON line of results. Beside
 each request it keeps the wall, process CPU and garbage-collector seconds,
 which it prints on standard error.
 
+A request holds frames of one or more takes (``request_takes``), each
+take with its own topology and size (``inputs.Takes``); the entry gets
+them as a list of ``(faces, [frame attributes ...])``, one a take, and
+every reading follows the take of each frame.
+
 The cell names its configuration and traffic mix; the mix names its entry.
 Each is found by name: ``configs/`` (the configuration's ``file``),
 ``workloads/<traffic>.json``, ``entries/<entry>.py`` and
@@ -14,6 +19,7 @@ new files only."""
 from __future__ import annotations
 
 import argparse
+import collections
 import gc
 import importlib.util
 import json
@@ -108,17 +114,26 @@ class Run:
         self.setup_s = None
         self.window_s = None
         self.requests: list[dict] = []
-        self.frame_bytes = inputs.raw_bytes(cell.config)
-        rows, cols = inputs.lattice(cell.config)
-        self.vertices = rows * cols
-        self.faces = 2 * (rows - 1) * (cols - 1)
+        self.takes = inputs.Takes(cell.config, seed)
+        first = self.takes[0]         # take 0's sizes, for one-take readers
+        self.frame_bytes = first.frame_bytes
+        self.vertices = first.vertices
+        self.faces = first.num_faces
         self.streams: list = []       # per distinct request, per frame
         self.device_events = None     # the traced window's, or None
         self.spans: list = []
 
     def completed_bytes(self) -> int:
-        return sum(self.frame_bytes * len(r["frames"])
-                   for r in self.requests)
+        """Raw bytes of every frame of every request in the window, each
+        frame its own take's."""
+        return sum(self.takes[t].frame_bytes for r in self.requests
+                   for t, _ in r["frames"])
+
+    def frames_by_take(self, request: dict) -> list:
+        """(take, frames of it) of a request in the window, in the order
+        its takes first come."""
+        n = collections.Counter(t for t, _ in request["frames"])
+        return [(self.takes[t], k) for t, k in n.items()]
 
     def mean_timing_ms(self, key: str):
         vals = [r["timings"][key] for r in self.requests
@@ -140,9 +155,24 @@ class Run:
                 for frame in self.streams[r["distinct"]]]
 
 
-def request_frames(traffic: dict, r: int) -> list[int]:
+def request_takes(traffic: dict, r: int) -> list[tuple[int, list[int]]]:
+    """(take, frame indices) of request ``r``. Without the traffic's
+    ``takes_per_request``, frames ``r n ... (r + 1) n - 1`` of take 0 (n:
+    ``frames_per_request``); with it (k, which divides n), takes
+    ``r k ... r k + k - 1``, frames ``0 ... n / k - 1`` of each."""
     n = int(traffic["frames_per_request"])
-    return list(range(r * n, (r + 1) * n))
+    if "takes_per_request" not in traffic:
+        return [(0, list(range(r * n, (r + 1) * n)))]
+    k = int(traffic["takes_per_request"])
+    if k < 1 or n % k:
+        raise SpecError(f"takes_per_request {k} does not divide "
+                        f"frames_per_request {n}")
+    return [(t, list(range(n // k))) for t in range(r * k, (r + 1) * k)]
+
+
+def request_frames(traffic: dict, r: int) -> list[tuple[int, int]]:
+    """The (take, frame) pairs of request ``r``, in the entry's order."""
+    return [(t, f) for t, fs in request_takes(traffic, r) for f in fs]
 
 
 def _parse(argv):
@@ -214,16 +244,15 @@ def main(argv=None, t0: float | None = None, device: str = "cuda",
     traffic = cell.traffic
     n_distinct = int(traffic["distinct_requests"])
     warm_ids = [n_distinct + w for w in range(int(traffic["warm_requests"]))]
-    faces = inputs.lattice_faces(*inputs.lattice(cell.config), args.seed)
 
     entry = cell.entry.Entry(cell.config, traffic, device)
     if entry_wrapper is not None:
         entry = entry_wrapper(entry)
 
     def make(r: int):
-        return entry.prepare(faces, [
-            inputs.frame_attributes(cell.config, args.seed, f, faces)
-            for f in request_frames(traffic, r)])
+        return entry.prepare([
+            (run.takes[t].faces, [run.takes[t].frame(f) for f in frames])
+            for t, frames in request_takes(traffic, r)])
 
     requests = [make(r) for r in range(n_distinct)]
     for r in warm_ids:

@@ -8,11 +8,23 @@ vertex normals) and TEX_COORD (a texture atlas of charts, each a warped,
 rotated and shuffled patch, fixed over the take as a tracked capture's
 atlas is). Every seed gives the same sizes and the same kind of surface;
 the seed moves the diagonals, the jitter, the waves, the drift, the atlas
-and the noise."""
+and the noise.
+
+A run holds one or more takes, each with its own topology (``Takes``).
+Take 0 is the configuration's lattice on the run's seed. Take ``t >= 1``
+is take 0 of a seed drawn from ``(seed, TAKE_STREAM, t)``, a stream that
+no draw on the run's own seed opens, on the lattice
+``takes[t % len(takes)]`` where the configuration lists ``takes``
+(``[{"lattice": [rows, cols]}, ...]``), else on the configuration's."""
 
 from __future__ import annotations
 
+from functools import cached_property
+
 import numpy as np
+
+# the stream of the take seeds: _rng opens streams 0 to 5 on a run's seed
+TAKE_STREAM = 0x74616B65
 
 
 def _rng(seed: int, *stream: int) -> np.random.Generator:
@@ -144,3 +156,57 @@ def raw_bytes(config: dict) -> int:
     vertex)."""
     rows, cols = lattice(config)
     return rows * cols * 8 * 4
+
+
+def take_seed(seed: int, t: int) -> int:
+    """The seed of take ``t``: the run's own for take 0, else a 64-bit
+    draw of a SeedSequence over ``(seed, TAKE_STREAM, t)``."""
+    if t == 0:
+        return int(seed)
+    ss = np.random.SeedSequence([int(seed), TAKE_STREAM, int(t)])
+    return int(ss.generate_state(1, np.uint64)[0])
+
+
+def take_config(config: dict, t: int) -> dict:
+    """The configuration of take ``t``: the file's, with the lattice of
+    ``takes[t % len(takes)]`` where it lists ``takes``."""
+    takes = config.get("takes")
+    if not takes:
+        return config
+    return dict(config, lattice=takes[t % len(takes)]["lattice"])
+
+
+class Take:
+    """Take ``t`` of a run on ``seed``: its configuration, seed, lattice,
+    vertex and face counts, raw bytes a frame, and its faces (made at the
+    first use)."""
+
+    def __init__(self, config: dict, seed: int, t: int) -> None:
+        self.config = take_config(config, t)
+        self.seed = take_seed(seed, t)
+        self.lattice = lattice(self.config)
+        rows, cols = self.lattice
+        self.vertices = rows * cols
+        self.num_faces = 2 * (rows - 1) * (cols - 1)
+        self.frame_bytes = raw_bytes(self.config)
+
+    @cached_property
+    def faces(self) -> np.ndarray:
+        return lattice_faces(*self.lattice, self.seed)
+
+    def frame(self, frame: int):
+        """``frame_attributes`` of frame ``frame`` of the take."""
+        return frame_attributes(self.config, self.seed, frame, self.faces)
+
+
+class Takes:
+    """The takes of a run, made once each: ``takes[t]``."""
+
+    def __init__(self, config: dict, seed: int) -> None:
+        self.config, self.seed = config, seed
+        self._made: dict[int, Take] = {}
+
+    def __getitem__(self, t: int) -> Take:
+        if t not in self._made:
+            self._made[t] = Take(self.config, self.seed, t)
+        return self._made[t]

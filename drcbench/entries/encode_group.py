@@ -47,7 +47,10 @@ class Entry:
             route_cache_path=None)
         self.build_s = None
 
-    def prepare(self, faces, frames) -> Frames:
+    def prepare(self, takes) -> Frames:
+        if len(takes) != 1:
+            raise ValueError(f"one take a request, not {len(takes)}")
+        faces, frames = takes[0]
         return Frames(faces, *(np.stack([f[k] for f in frames])
                                for k in range(3)))
 

@@ -1,6 +1,6 @@
 """C1, the NORMAL encode chain: the least time of the window's chains
-(``roofline.normal_encode_work``, one chain over each request's meshes)
-over the device time of the kernels named below, in %."""
+(``roofline.normal_encode_work``, one chain over each take's meshes of
+each request) over the device time of the kernels named below, in %."""
 
 from drcbench.core import roofline
 
@@ -13,9 +13,10 @@ def value(run):
         return None
     nbytes = ops = 0.0
     for r in run.requests:
-        b, o = roofline.normal_encode_work(len(r["frames"]), run.vertices,
-                                           run.faces)
-        nbytes += b
-        ops += o
+        for take, frames in run.frames_by_take(r):
+            b, o = roofline.normal_encode_work(frames, take.vertices,
+                                               take.num_faces)
+            nbytes += b
+            ops += o
     least, _ = roofline.bound(nbytes, ops)
     return 100.0 * least / got[0]

@@ -1,7 +1,8 @@
 """The reference's work spread over worker processes, a block of frames
-each: every worker makes its frames from the seed, builds the topology
-once and encodes its frames. Nothing here imports the program under
-test."""
+each: every worker makes its frames from the seed, builds each take's
+topology once and encodes its frames. A frame is a (take, frame) pair, as
+the harness names it, and a block keeps to one take where it can. Nothing
+here imports the program under test."""
 
 from __future__ import annotations
 
@@ -11,18 +12,18 @@ from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
-from ..core.inputs import frame_attributes, lattice, lattice_faces
+from ..core.inputs import Takes
 from . import oracle
 
 
 def _frames(config: dict, seed: int, frame_ids, precision: str):
-    faces = lattice_faces(*lattice(config), seed)
+    takes = Takes(config, seed)
     out = []
-    for f in frame_ids:
-        attrs = frame_attributes(config, seed, f, faces)
+    for t, f in frame_ids:
+        attrs = takes[t].frame(f)
         if precision == "bfloat16":
             attrs = tuple(round_bfloat16(a) for a in attrs)
-        out.append(oracle.build_mesh(faces, *attrs))
+        out.append(oracle.build_mesh(takes[t].faces, *attrs))
     return out
 
 
@@ -45,10 +46,28 @@ def _encode_block(job):
     return blobs, stats
 
 
-def _blocks(frame_ids: list, workers: int) -> list[list]:
+def _split(items: list, n: int) -> list[list]:
+    """``items`` in ``n`` runs of consecutive items, the first ones longer
+    by one where they do not share evenly (as ``np.array_split``)."""
+    q, r = divmod(len(items), n)
+    cuts = [i * q + min(i, r) for i in range(n + 1)]
+    return [items[a:b] for a, b in zip(cuts, cuts[1:])]
+
+
+def _blocks(frame_ids: list, workers: int) -> list[list[int]]:
+    """Positions in ``frame_ids``, in at most ``workers`` blocks: whole
+    takes packed together where there are as many takes as blocks, else
+    each take cut into its share of them."""
     n = max(1, min(workers, len(frame_ids)))
-    return [list(b) for b in np.array_split(np.asarray(frame_ids), n)
-            if len(b)]
+    by_take: dict = {}
+    for i, (t, _) in enumerate(frame_ids):
+        by_take.setdefault(t, []).append(i)
+    takes = list(by_take.values())
+    if len(takes) >= n:
+        return [[i for take in part for i in take]
+                for part in _split(takes, n)]
+    return [blk for take in takes
+            for blk in _split(take, max(1, n * len(take) // len(frame_ids)))]
 
 
 def _map(fn, jobs: list, workers: int) -> list:
@@ -65,13 +84,15 @@ def default_workers() -> int:
 
 def encode(config: dict, seed: int, frame_ids: list, workers: int,
            precision: str = "float32"):
-    """(blobs, stream stats), one of each a frame, in ``frame_ids``'
-    order. ``precision`` "bfloat16" rounds every input attribute to
-    bfloat16 first (the lower-precision control)."""
-    blobs, stats = [], []
-    for b, s in _map(_encode_block, [
-            (config, seed, blk, precision)
-            for blk in _blocks(frame_ids, workers)], workers):
-        blobs += b
-        stats += s
+    """(blobs, stream stats), one of each a (take, frame) pair of
+    ``frame_ids``, in its order. ``precision`` "bfloat16" rounds every
+    input attribute to bfloat16 first (the lower-precision control)."""
+    blocks = _blocks(frame_ids, workers)
+    blobs: list = [None] * len(frame_ids)
+    stats: list = [None] * len(frame_ids)
+    for blk, (b, s) in zip(blocks, _map(_encode_block, [
+            (config, seed, [frame_ids[i] for i in blk], precision)
+            for blk in blocks], workers)):
+        for i, bi, si in zip(blk, b, s):
+            blobs[i], stats[i] = bi, si
     return blobs, stats

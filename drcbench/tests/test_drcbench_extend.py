@@ -4,7 +4,8 @@ new entries in BENCHMARK.json only: no file the benchmark has is edited."""
 import hashlib
 import json
 
-from conftest import run_cell
+from conftest import add_takes_cell, run_cell
+from drcbench.core import harness
 
 
 def _digests(root):
@@ -51,5 +52,47 @@ def test_a_new_cell_config_and_metric_are_new_files(tiny_root, capsys):
     for cell in ("dfaust.encode", "sim1m.encode"):
         old = run_cell(tiny_root, cell, capsys, trace=1)
         assert old["metrics"]["enc.requests"]["value"] == old["attempted"]
+    after = _digests(tiny_root)
+    assert all(after[k] == v for k, v in before.items())
+
+
+def test_a_cell_of_takes_of_two_sizes_is_new_files(tiny_root, capsys,
+                                                     monkeypatch):
+    """Requests of three takes of two frames, the takes of two lattice
+    sizes and each of its own topology, through an entry over the router:
+    correct, and ``encode_mb_s`` counts each frame at its own take's
+    size."""
+    before = _digests(tiny_root)
+    add_takes_cell(tiny_root)
+    runs, entries = [], []
+
+    class Kept(harness.Run):
+        def __init__(self, *args):
+            super().__init__(*args)
+            runs.append(self)
+
+    monkeypatch.setattr(harness, "Run", Kept)
+
+    def keep(entry):
+        entries.append(entry)
+        return entry
+
+    res = run_cell(tiny_root, "takes.encode", capsys, entry_wrapper=keep)
+    assert res["correct"] is True and res["failed"] == 0
+    assert res["compared"]["blobs_wrong"]["value"] == 0
+    (run,), (entry,) = runs, entries
+    # each take its own topology: the warm request's three and the two
+    # distinct requests' six, no two alike
+    sigs = {tuple(s) for s in entry.signatures}
+    assert len(sigs) == 3
+    flat = [s for t in sigs for s in t]
+    assert len(set(flat)) == len(flat) == 9
+    assert [len(r["frames"]) for r in run.requests] == [6] * len(
+        run.requests)
+    sizes = {0: 7 * 9, 1: 10 * 8}
+    want = sum(sizes[t % 2] * 32 for r in run.requests
+               for t, _ in r["frames"])
+    assert res["metrics"]["encode_mb_s"]["value"] == want / run.window_s / 1e6
+    assert {t % 2 for r in run.requests for t, _ in r["frames"]} == {0, 1}
     after = _digests(tiny_root)
     assert all(after[k] == v for k, v in before.items())

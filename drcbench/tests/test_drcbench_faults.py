@@ -6,9 +6,11 @@ produced. A sound run and the lower-precision control bound the two sides.
 Every cell is on one chip, so there is no exchange between chips to leave
 out."""
 
+import json
+
 import pytest
 
-from conftest import run_cell
+from conftest import add_takes_cell, run_cell
 from drcbench.core import control
 
 CELLS = ["dfaust.encode", "sim1m.encode"]
@@ -20,8 +22,8 @@ class Stale:
     def __init__(self, entry):
         self.entry, self.first = entry, None
 
-    def prepare(self, faces, items):
-        return self.entry.prepare(faces, items)
+    def prepare(self, takes):
+        return self.entry.prepare(takes)
 
     def run(self, request):
         if self.first is None:
@@ -56,6 +58,19 @@ class Altered(Stale):
         return out
 
 
+class SwappedFaces(Stale):
+    """Hands each request's second take's frames over with its first
+    take's faces: the frames go to the wrong topology."""
+
+    def prepare(self, takes):
+        takes = list(takes)
+        takes[1] = (takes[0][0], takes[1][1])
+        return self.entry.prepare(takes)
+
+    def run(self, request):
+        return self.entry.run(request)
+
+
 @pytest.mark.parametrize("cell", CELLS)
 def test_a_sound_run_is_correct(tiny_root, capsys, cell):
     res = run_cell(tiny_root, cell, capsys)
@@ -83,6 +98,27 @@ def test_the_lower_precision_control_reads_not_correct(tiny_root, capsys,
                        "--seconds", "0.2"], device="cpu",
                       require_cuda=False, root=tiny_root, workers=1)
     assert rc == 0
-    import json
     res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert res["correct"] is False
+
+
+def test_a_take_given_another_takes_faces_reads_not_correct(tiny_root,
+                                                             capsys):
+    add_takes_cell(tiny_root, takes=())  # one lattice, so the faces fit
+    res = run_cell(tiny_root, "takes.encode", capsys,
+                   entry_wrapper=SwappedFaces)
+    assert res["compared"]["blobs_wrong"]["value"] > 0
+    assert res["correct"] is False
+
+
+def test_the_control_of_a_cell_of_takes_reads_not_correct(tiny_root,
+                                                          capsys):
+    add_takes_cell(tiny_root)
+    capsys.readouterr()
+    rc = control.main(["--workload", "takes.encode", "--seed", "424243",
+                       "--seconds", "0.2"], device="cpu",
+                      require_cuda=False, root=tiny_root, workers=1)
+    assert rc == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["correct"] is False
+    assert res["compared"]["blobs_wrong"]["value"] > 0

@@ -60,8 +60,8 @@ def test_the_reference_loads_nothing_of_the_program():
         from drcbench.reference import pool
         cfg = json.loads(open({str(ROOT / 'drcbench/configs/dfaust-pnt.json')!r}).read())
         cfg.update(lattice=[10, 12], uv=dict(cfg["uv"], chart_size=4))
-        pool.encode(cfg, 3, [0, 1], workers=2)
-        pool.encode(cfg, 3, [2], workers=1, precision="bfloat16")
+        pool.encode(cfg, 3, [(0, 0), (1, 0)], workers=2)
+        pool.encode(cfg, 3, [(0, 2)], workers=1, precision="bfloat16")
         print("TOPS", json.dumps(sorted({{m.split(".")[0]
                                           for m in sys.modules}})))
     """

@@ -7,7 +7,7 @@ import json
 
 import pytest
 
-from conftest import ROOT
+from conftest import ROOT, add_takes_cell
 from drcbench.core import roofline, trace
 from drcbench.core.harness import Cell, Run
 
@@ -18,8 +18,8 @@ STREAM = {"symbols": 196_608, "table_entries": 4096,
           "payload_bytes": 150_000}
 
 
-def _run(cell: str = "dfaust.encode") -> Run:
-    run = Run(Cell(ROOT, cell), seed=1, seconds=2.0)
+def _run(cell: str = "dfaust.encode", root=ROOT) -> Run:
+    run = Run(Cell(root, cell), seed=1, seconds=2.0)
     spans = [s for s in trace.spans(EVENTS) if s[2].endswith("encode_group")]
     run.device_events = [e for e in trace.device_events(EVENTS)
                          if spans[0][0] <= e["ts"] <= spans[-1][1]]
@@ -29,7 +29,8 @@ def _run(cell: str = "dfaust.encode") -> Run:
     t = {"chains_s": 0.6, "assembly_s": 0.2, "position_s": 0.1,
          "build_s": 0.3}
     run.requests = [{"index": i, "distinct": i % 2,
-                     "frames": list(range(i * per, (i + 1) * per)),
+                     "frames": [(0, f) for f in range(i * per,
+                                                      (i + 1) * per)],
                      "start": float(i), "end": i + 1.0, "timings": t}
                     for i in range(len(spans))]
     run.streams = [[[STREAM, STREAM, STREAM] for _ in range(per)]
@@ -88,6 +89,46 @@ def test_roofline_readers():
         per, run.vertices, run.faces)])
     assert run.cell.readers["c1_roofline"].value(run) == pytest.approx(
         100 * least / 500e-6)
+
+
+@pytest.mark.parametrize("cell,sizes,want", [
+    ("dfaust.encode", (26457600, 220480, 6890, 13440),
+     {"encode_mb_s": 13.2288, "c1_roofline": 1.686691343283582,
+      "k3_roofline": 2.8442268656716423}),
+    ("sim1m.encode", (67108864, 33554432, 1048576, 2093058),
+     {"encode_mb_s": 33.554432, "c1_roofline": 13.128727880597015})])
+def test_one_take_readings_are_the_ones_of_one_take_a_run(cell, sizes,
+                                                          want):
+    """The fixture's run reads, float for float, what the harness of one
+    take a run read from it."""
+    run = _run(cell)
+    assert (run.completed_bytes(), run.frame_bytes, run.vertices,
+            run.faces) == sizes
+    assert {k: run.cell.readers[k].value(run) for k in want} == want
+
+
+def test_readers_of_two_takes_sum_each_takes_own_work(tiny_root):
+    """Two requests of three takes of two frames, the takes of two lattice
+    sizes: the bytes and C1's work are each take's own, summed."""
+    add_takes_cell(tiny_root, takes=((7, 9), (10, 8)))
+    run = _run("takes.encode", tiny_root)
+    run.requests = [dict(q, frames=[(t, f) for t in range(3 * i, 3 * i + 3)
+                                    for f in range(2)])
+                    for i, q in enumerate(run.requests)]
+    sizes = [(63, 2 * 6 * 8), (80, 2 * 9 * 7)]  # (vertices, faces) a take
+    assert [run.takes[t].vertices for t in range(4)] == [63, 80, 63, 80]
+    assert len(run.requests) == 2  # takes 0, 1, 2, then 3, 4, 5
+    assert run.completed_bytes() == 2 * 32 * 3 * (63 + 80)
+    nbytes = ops = 0.0
+    for t in (0, 1, 0, 1, 0, 1):
+        b, o = roofline.normal_encode_work(2, *sizes[t])
+        nbytes += b
+        ops += o
+    least, _ = roofline.bound(nbytes, ops)
+    assert run.cell.readers["c1_roofline"].value(run) == pytest.approx(
+        100 * least / 500e-6, rel=1e-12)
+    assert run.cell.readers["encode_mb_s"].value(run) == pytest.approx(
+        run.completed_bytes() / 2.0 / 1e6, rel=1e-12)
 
 
 def test_readers_without_a_trace_or_kernel_give_nothing():

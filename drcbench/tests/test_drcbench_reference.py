@@ -49,7 +49,7 @@ def test_stream_stats_walk_every_byte_of_the_streams(rows, cols, seed):
     to the blob's last byte (it raises otherwise), and counts a symbol per
     coded component of each vertex in the attribute's traversal."""
     cfg = dict(CFG, lattice=[rows, cols], uv=dict(CFG["uv"], chart_size=5))
-    blobs, stats = pool.encode(cfg, seed, [0, 1], workers=1)
+    blobs, stats = pool.encode(cfg, seed, [(0, 0), (0, 1)], workers=1)
     v = rows * cols
     for blob, st in zip(blobs, stats):
         assert [s["h"]["att_type"].name for s in st] == [
@@ -76,3 +76,29 @@ def test_bfloat16_rounding():
     assert r[2] == np.float32(1.0078125)
     assert np.all(r.view(np.uint32) & 0xFFFF == 0)
     assert abs(r[3] - a[3]) <= 2 ** -7 * 4
+
+
+def test_blocks_keep_to_one_take_and_answers_keep_their_order():
+    ids = [(t, f) for t in (4, 1, 2) for f in range(3)]
+    blocks = pool._blocks(ids, 3)
+    assert [[ids[i][0] for i in b] for b in blocks] == [[4] * 3, [1] * 3,
+                                                        [2] * 3]
+    assert len(pool._blocks(ids, 6)) == 6
+    assert all(len({ids[i][0] for i in b}) == 1
+               for b in pool._blocks(ids, 6))
+    assert sorted(i for b in pool._blocks(ids, 2) for i in b) == list(
+        range(9))
+    # one take: the consecutive runs np.array_split makes
+    one = [(0, f) for f in range(10)]
+    assert pool._blocks(one, 4) == [
+        list(b) for b in np.array_split(np.arange(10), 4)]
+    cfg = dict(CFG, lattice=[9, 8], uv=dict(CFG["uv"], chart_size=4),
+               takes=[{"lattice": [9, 8]}, {"lattice": [6, 10]}])
+    mixed = [(1, 1), (0, 0), (2, 0), (1, 0)]
+    blobs, stats = pool.encode(cfg, 11, mixed, workers=2)
+    alone = [pool.encode(cfg, 11, [p], workers=1) for p in mixed]
+    assert blobs == [b[0][0] for b in alone]
+    assert [s[0]["symbols"] for s in stats] == [
+        b[1][0][0]["symbols"] for b in alone]
+    assert stats[0][0]["symbols"] == 3 * 60 and stats[1][0]["symbols"] == (
+        3 * 72)
