@@ -3,10 +3,12 @@ kept without a profiler; under ``torch.profiler.profile`` the encode
 routes and ``build_meshes`` give their documented spans, nested in their
 parents and sharing their call's root; the dedup spans count the rows
 they were given and the distinct rows they found; the encoders' ``timings`` are the
-totals of those spans; and the spans sit on the clock of the profiler's
-Chrome trace."""
+totals of those spans, a nested root's adding to its caller's; and the
+spans sit on the clock of the profiler's Chrome trace."""
 
 import json
+import time
+import types
 
 import pytest
 from torch.profiler import ProfilerActivity, profile
@@ -231,3 +233,41 @@ def test_the_record_is_bounded(monkeypatch):
     assert len(spans) == 3 and trace.dropped() == 2 * 4 + 1 - 3
     trace.clear()
     assert trace.spans() == [] and trace.dropped() == 0
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_a_nested_root_adds_its_totals_to_the_enclosing_root(monkeypatch,
+                                                             traced):
+    """A root opened under another (the router's device-plane calls) keeps
+    its own totals and adds them to the enclosing root's when it closes;
+    a clock that ticks 1 ns a read makes each empty ``timed`` span 1 ns."""
+    ticks = iter(range(1 << 20))
+    monkeypatch.setattr(trace, "time", types.SimpleNamespace(
+        perf_counter_ns=lambda: next(ticks), time_ns=time.time_ns))
+
+    def call():
+        with trace.root("outer") as outer:
+            with trace.timed("a"):
+                pass
+            with trace.root("inner") as inner:
+                with trace.timed("a"):
+                    pass
+                with trace.timed("b"):
+                    pass
+            with trace.span("c"):
+                pass
+        return outer.totals, inner.totals
+
+    if traced:
+        with profile(activities=[ProfilerActivity.CPU]):
+            outer, inner = call()
+        assert [s.name for s in trace.spans()] == ["a", "a", "b", "inner",
+                                                   "c", "outer"]
+        trace.clear()
+    else:
+        outer, inner = call()
+    assert inner == {"a": 1, "b": 1}
+    assert outer == {"a": 2, "b": 1}
+    with trace.root("after") as after:
+        pass
+    assert after.totals == {}

@@ -669,7 +669,10 @@ class BatchEncoder:
     ``assembly_s`` those of the spans of that name, ``position_s`` the
     ``position`` spans less K1's tile-table builds (``position.tiles``),
     which count in ``topology_s`` beside ``topology`` (and, in
-    ``encode_mesh_device``, ``signatures``). To see the spans themselves,
+    ``encode_mesh_device``, ``signatures``). After ``encode_meshes_auto``
+    they describe the whole call: its device-plane calls' stages summed,
+    the probes' and the host plane's seconds and the groups' counts (see
+    there). To see the spans themselves,
     profile the call with ``torch.profiler`` and look for the
     ``torchdraco.*`` ranges in its trace.
 
@@ -1326,22 +1329,81 @@ class BatchEncoder:
         large. Decisions go to ``routing_log``. A mesh that fails the input
         check (``_refused_input``) yields None and joins no group, as one
         that the host plane fails to encode does; a failure of a device
-        plane raises."""
+        plane raises.
+
+        After the call ``timings`` describes the whole call: the stage
+        keys of ``encode_meshes_device`` (``signatures_s`` ...
+        ``assembly_s``, ``h2d_mb``) summed over every device-plane call in
+        it, probes included, from the totals that its nested roots add to
+        its own (a lone huge mesh's resident route adds its stages too, the
+        chunked route's passes are not among them); the host
+        plane's seconds in the probes (``route_probe_host_s``), the device
+        plane's in the probes (``route_probe_device_s``) and the host
+        plane's outside them (``route_host_s``); and the counts
+        ``groups``, ``groups_measured`` (probed), ``groups_cached`` (a kept
+        decision, in memory or on disk), ``groups_static`` (a lone mesh or
+        a small group), ``meshes_device`` and ``meshes_host``. Under a
+        torch profiler the call is the root ``encode_meshes_auto``
+        (``meshes``, ``groups``): a ``signatures`` span over the grouping,
+        then a ``route.group`` span a group (``meshes``, ``verts``,
+        ``plane``, ``source``: the decision's, as ``_route_group``
+        returns it), with ``route.probe.host`` / ``route.probe.device``
+        around the probes and ``route.host`` around the host plane's other
+        encodes (``torchdraco.trace``)."""
         axis = self._axis(device)
         dev = axis[0]
         # a decision measured over a shard axis routes that axis only
         self._route_dev_name = _device_name(dev) + (
             f" x{len(axis)}" if self.mesh_axis is not None else "")
-        groups: dict[str, list[int]] = {}
-        for idx, m in enumerate(meshes):
-            if not _refused_input(m):
-                groups.setdefault(topology_signature(m), []).append(idx)
-        out: list[bytes | None] = [None] * len(meshes)
-        for sig, idxs in groups.items():
-            self._route_group(meshes, idxs, sig, out, dev)
+        counts = dict.fromkeys(_ROUTE_COUNTS, 0)
+        counts["h2d_mb"] = 0.0
+        with trace.root("encode_meshes_auto", meshes=len(meshes)) as call:
+            with trace.span("signatures"):
+                groups: dict[str, list[int]] = {}
+                for idx, m in enumerate(meshes):
+                    if not _refused_input(m):
+                        groups.setdefault(topology_signature(m),
+                                          []).append(idx)
+            call.note(groups=len(groups))
+            out: list[bytes | None] = [None] * len(meshes)
+            for sig, idxs in groups.items():
+                with trace.span("route.group", meshes=len(idxs)) as span:
+                    entry, source = self._route_group(meshes, idxs, sig,
+                                                      out, dev, counts)
+                    span.note(verts=entry["verts"], plane=entry["plane"],
+                              source=source)
+                counts[_SOURCE_COUNT[source]] += 1
+                self.routing_log.append(entry)
+        counts["groups"] = len(groups)
+        self.timings = dict(_stage_timings(call.totals), **counts, **{
+            key.replace(".", "_") + "_s": call.totals.get(key, 0) * 1e-9
+            for key in ("route.probe.host", "route.probe.device",
+                        "route.host")})
         return out
 
-    def _route_group(self, meshes, idxs, sig, out, dev) -> None:
+    def _route_host(self, meshes, idxs, out, counts) -> None:
+        """The host plane on ``idxs``, in a ``route.host`` span."""
+        with trace.timed("route.host"):
+            for i in idxs:
+                out[i] = self._encode_one_safe(meshes[i])
+        counts["meshes_host"] += len(idxs)
+
+    def _route_device(self, meshes, idxs, out, dev, counts) -> None:
+        """The device plane on ``idxs``; its upload adds to ``h2d_mb``."""
+        for i, blob in zip(idxs, self._device_plane(
+                [meshes[i] for i in idxs], dev)):
+            out[i] = blob
+        counts["h2d_mb"] += self.timings.get("h2d_mb", 0.0)
+        counts["meshes_device"] += len(idxs)
+
+    def _route_group(self, meshes, idxs, sig, out, dev,
+                     counts) -> tuple[dict, str]:
+        """Routes one group into ``out``, counting its meshes by plane in
+        ``counts``; returns its ``routing_log`` entry and the decision's
+        source: "static" (a lone mesh), "small" (below MIN_DEVICE_GROUP),
+        "memory" or "disk" (a kept decision), "cheaper" (the host probe
+        priced the group below PROBE_SKIP_S) or "measured" (both planes
+        probed)."""
         n = len(idxs)
         m0 = meshes[idxs[0]]
         v = int(m0.position_attribute().num_points)
@@ -1364,21 +1426,21 @@ class BatchEncoder:
                     reason = (f"single mesh (measured: device "
                               f"{est_d:.1f} vs host {est_h:.1f} MB/s)")
             t0 = _clock()
-            out[idxs[0]] = (self._encode_huge(m0, dev) if huge
-                            else self._encode_one_safe(m0))
+            if huge:
+                out[idxs[0]] = self._encode_huge(m0, dev)
+                counts["meshes_device"] += 1
+            else:
+                self._route_host(meshes, idxs, out, counts)
             dt = _clock() - t0
             if out[idxs[0]] is not None and dt > 0:
                 self._note_mbs("huge_device" if huge else "host", nbytes,
                                dt, v)
             entry.update(plane="device" if huge else "host", reason=reason)
-            self.routing_log.append(entry)
-            return
+            return entry, "static"
         if n < self.MIN_DEVICE_GROUP and v < self.CHUNKED_MIN_VERTS:
-            for i in idxs:
-                out[i] = self._encode_one_safe(meshes[i])
+            self._route_host(meshes, idxs, out, counts)
             entry.update(plane="host", reason="small group")
-            self.routing_log.append(entry)
-            return
+            return entry, "small"
         cached = self._plane_cache.get(sig)
         source = "memory"
         if cached is None and self._route_cache_path:
@@ -1396,57 +1458,49 @@ class BatchEncoder:
                 if source == "disk":
                     self._plane_cache[sig] = cached
                 if plane == "device":
-                    for i, blob in zip(idxs, self._device_plane(
-                            [meshes[i] for i in idxs], dev)):
-                        out[i] = blob
+                    self._route_device(meshes, idxs, out, dev, counts)
                 else:
-                    for i in idxs:
-                        out[i] = self._encode_one_safe(meshes[i])
+                    self._route_host(meshes, idxs, out, counts)
                 entry.update(plane=plane,
                              reason=f"cached decision ({source})")
-                self.routing_log.append(entry)
-                return
+                return entry, source
         # probe: the host plane on a few meshes (one, if they are large),
         # the device plane on a part of the group
         k = 1 if v >= self.CHUNKED_MIN_VERTS else min(4, n - 1)
-        t0 = _clock()
-        for i in idxs[:k]:
-            out[i] = self._encode_one_safe(meshes[i])
-        th = (_clock() - t0) / k
+        with trace.timed("route.probe.host"):
+            t0 = _clock()
+            for i in idxs[:k]:
+                out[i] = self._encode_one_safe(meshes[i])
+            th = (_clock() - t0) / k
+        counts["meshes_host"] += k
         self._note_mbs("host", k * nbytes, th * k, v)
         if th * (n - k) < self.PROBE_SKIP_S:
             # the whole group costs the host less than a device probe
-            for i in idxs[k:]:
-                out[i] = self._encode_one_safe(meshes[i])
+            self._route_host(meshes, idxs[k:], out, counts)
             entry.update(plane="host", reason="group cheaper than probe",
                          host_s_per_mesh=round(th, 4))
             self._keep_decision(sig, "host", n, th, None)
-            self.routing_log.append(entry)
-            return
+            return entry, "cheaper"
         # a quarter of the group, at least PROBE_CHUNK meshes and at most
         # 128: the probe prices how far the device plane's fixed costs
         # spread over a group of this size
         probe_w = min(max(self.PROBE_CHUNK, n // 4), 128, n - k)
         chunk_ids = idxs[k:k + probe_w]
-        t0 = _clock()  # the call returns bytes on the host: synchronous
-        dev_blobs = self._device_plane([meshes[i] for i in chunk_ids], dev)
-        td = (_clock() - t0) / len(chunk_ids)
-        for i, blob in zip(chunk_ids, dev_blobs):
-            out[i] = blob
+        with trace.timed("route.probe.device"):
+            t0 = _clock()  # the call returns bytes on the host: synchronous
+            self._route_device(meshes, chunk_ids, out, dev, counts)
+            td = (_clock() - t0) / len(chunk_ids)
         rest = idxs[k + probe_w:]
         use_dev = td < th
         if use_dev and rest:
-            for i, blob in zip(rest, self._device_plane(
-                    [meshes[i] for i in rest], dev)):
-                out[i] = blob
-        else:
-            for i in rest:
-                out[i] = self._encode_one_safe(meshes[i])
+            self._route_device(meshes, rest, out, dev, counts)
+        elif rest:
+            self._route_host(meshes, rest, out, counts)
         entry.update(plane="device" if use_dev else "host",
                      host_s_per_mesh=round(th, 4),
                      device_s_per_mesh=round(td, 4))
         self._keep_decision(sig, "device" if use_dev else "host", n, th, td)
-        self.routing_log.append(entry)
+        return entry, "measured"
 
     def _keep_decision(self, sig: str, plane: str, n: int, th: float,
                        td: float | None) -> None:
@@ -1659,6 +1713,15 @@ _clock = time.perf_counter
 # a decision or estimate on disk older than this is measured again: the
 # host's speed drifts over hours
 ROUTE_CACHE_TTL_S = 6 * 3600.0
+
+
+# encode_meshes_auto's counts, and the count that each source of a
+# decision adds to
+_ROUTE_COUNTS = ("groups", "groups_measured", "groups_cached",
+                 "groups_static", "meshes_device", "meshes_host")
+_SOURCE_COUNT = {"static": "groups_static", "small": "groups_static",
+                 "memory": "groups_cached", "disk": "groups_cached",
+                 "cheaper": "groups_measured", "measured": "groups_measured"}
 
 
 def _route_cache_default_path() -> str | None:

@@ -16,7 +16,9 @@ keeps nothing.
 ``root(name, **attrs)`` opens a public call. Profiler or not, it keeps the
 call's nanoseconds by the name of each ``timed`` span opened under it
 (``totals``), which the encoders make their ``timings`` from; a ``timed``
-span reads the clock twice with or without a profiler.
+span reads the clock twice with or without a profiler. A root opened
+under another (the router's device-plane calls) adds its totals to the
+enclosing root's when it closes.
 
 ``spans()`` returns the kept spans and ``clear()`` drops them. Past ``CAP``
 spans nothing more is kept, and ``dropped()`` counts what was not. Each
@@ -156,6 +158,10 @@ class _Open:
             dt = time.perf_counter_ns() - self._t0
         if self.totals is not None:
             roots.pop()
+            if roots:  # a nested call's totals count in its caller's too
+                t = roots[-1].totals
+                for k, v in self.totals.items():
+                    t[k] = t.get(k, 0) + v
         if self.timed and roots:
             t = roots[-1].totals
             t[self.name] = t.get(self.name, 0) + dt
@@ -180,5 +186,6 @@ def timed(name: str, **attrs) -> _Open:
 
 def root(name: str, **attrs) -> _Open:
     """A public call: the root of the spans under it, with the totals of
-    its ``timed`` spans by name (``totals``, ns)."""
+    its ``timed`` spans by name (``totals``, ns), those of the roots
+    nested in it included."""
     return _Open(name, attrs, is_root=True)
