@@ -94,11 +94,44 @@ def test_encode_routes_give_their_spans(encoder, route):
         assert {s.name for s in call} == want
         root = [s for s in call if s.parent is None]
         assert [(s.name, s.attrs) for s in root] == [(name, {"meshes": n})]
-        # a payload loop a chain (NORMAL, TEX_COORD), inside ``chains``
+        # one payload span a chain (NORMAL, TEX_COORD), inside ``chains``,
+        # with the meshes it coded and skipped, the bits RAbS-coded and
+        # whether the one native call wrote them
         chains = next(s for s in call if s.name == "chains")
-        assert [s.parent for s in call if s.name == "chains.payloads"] \
-            == [chains.id] * 2
+        payloads = [s for s in call if s.name == "chains.payloads"]
+        assert [s.parent for s in payloads] == [chains.id] * 2
+        nrm, uv = (s.attrs for s in sorted(payloads,
+                                           key=lambda s: s.start_ns))
+        points = meshes[0].num_points
+        assert nrm == {"meshes": n, "skipped": 0, "bits": n * points,
+                       "native": True}
+        assert set(uv) == set(nrm) and uv["native"] is True
+        assert (uv["meshes"], uv["skipped"]) == (n, 0)
+        assert 0 < uv["bits"] <= n * points
     _check_nesting(spans)
+
+
+@pytest.mark.parametrize("library", [True, False])
+def test_payload_spans_count_skipped_meshes(encoder, monkeypatch, library):
+    """A mesh with a zero normal leaves the NORMAL chain's entries (the
+    host codes it): the span counts it as skipped, and says whether the
+    native call ran."""
+    if not library:
+        monkeypatch.setattr(native, "load_library", lambda: None)
+    pos, faces, nrm, uvs = _arrays(4)
+    nrm[2, 5] = 0.0
+    meshes = torchdraco.build_meshes(pos, faces, nrm, uvs)
+    blobs, spans, _ = _traced(lambda: encoder.encode_meshes_device(meshes))
+    assert blobs == [tbatch.encode_with_topology(
+        m, tbatch.PreparedTopology(m)) for m in meshes]
+    got = [s.attrs for s in sorted(spans, key=lambda s: s.start_ns)
+           if s.name == "chains.payloads"]
+    points = meshes[0].num_points
+    assert got[0] == {"meshes": 3, "skipped": 1, "bits": 3 * points,
+                      "native": library}
+    assert (got[1]["meshes"], got[1]["skipped"], got[1]["native"]) \
+        == (4, 0, library)
+    assert len(got) == 2
 
 
 def test_build_meshes_gives_values_and_points_spans():

@@ -127,14 +127,29 @@ class RabsEncoder:
         self.freq0 = freq_count_0
         self.freq1 = (1 << precision) - freq_count_0
         self.l_base = l_rabs_base if l_rabs_base is not None else L_RANS_BASE
-        self._bits: list[int] = []
+        self._bits: list[int] = []  # single writes not yet in _chunks
+        self._chunks: list[np.ndarray] = []  # uint8 0 / 1
 
     def write(self, value: int) -> None:
         self._bits.append(1 if value > 0 else 0)
 
     def write_all(self, bits) -> None:
-        self._bits.extend(1 if int(b) > 0 else 0
-                          for b in np.asarray(bits).ravel().tolist())
+        """Every element as a bit: set where its integer part is
+        positive."""
+        b = np.asarray(bits).ravel()
+        if b.dtype.kind in "bu":
+            b = b != 0
+        elif b.dtype.kind == "i":
+            b = b > 0
+        else:
+            b = np.fromiter((int(x) > 0 for x in b.tolist()), bool, b.size)
+        self._take_singles()
+        self._chunks.append(b.view(np.uint8))
+
+    def _take_singles(self) -> None:
+        if self._bits:
+            self._chunks.append(np.asarray(self._bits, dtype=np.uint8))
+            self._bits = []
 
     def _encode_python(self, bits) -> bytes:
         state = self.l_base
@@ -152,12 +167,13 @@ class RabsEncoder:
 
     def flush(self) -> bytes:
         from .. import native
-        blob = None
-        if native.load_library() is not None:
-            blob = native.rabs_encode(np.asarray(self._bits, dtype=np.uint8),
-                                      self.freq0, self.precision, self.l_base)
+        self._take_singles()
+        bits = (np.concatenate(self._chunks) if self._chunks
+                else np.zeros(0, dtype=np.uint8))
+        blob = native.rabs_encode(bits, self.freq0, self.precision,
+                                  self.l_base)
         if blob is None:
-            blob = self._encode_python(self._bits)
+            blob = self._encode_python(bits.tolist())
         return blob
 
 

@@ -84,6 +84,10 @@ def load_library():
         u64p_ = ctypes.c_void_p
         lib.tdn_encode_direct.restype = i64
         lib.tdn_encode_direct.argtypes = [u64p_, i64, u8p, i64]
+        lib.tdn_chain_payloads.restype = i64
+        lib.tdn_chain_payloads.argtypes = [
+            i64, i64, i64, u8p, u8p, u8p, u8p, i32p, i32p, ctypes.c_uint32,
+            u8p, i64, i64p, i64p]
         lib.tdn_rans_decode_auto.restype = i32
         lib.tdn_rans_decode_auto.argtypes = [u8p, i64, i32p, i32p, i64,
                                               i32, i64, i64, i32p]
@@ -262,6 +266,59 @@ def encode_direct(symbols: np.ndarray) -> bytes | None:
     if n < 0:
         return None
     return out[:n].tobytes()
+
+
+def chain_payloads(symbols: np.ndarray, skip: np.ndarray, bits: np.ndarray,
+                   flags: np.ndarray | None = None,
+                   vmin: np.ndarray | None = None,
+                   vmax: np.ndarray | None = None, n_mx: int = 0):
+    """The chain entries of one NORMAL (``flags`` None: ``bits`` the
+    flips, ``n_mx`` the wire's maximum) or TEX_COORD attribute (``bits``
+    the orientation values, ``flags`` which are coded, ``vmin`` /
+    ``vmax`` the ranges) of a chunk, in one call (csrc/rans.cpp
+    ``tdn_chain_payloads``). symbols (n, T, C) int32 or uint32, bits
+    and flags (n, T), skip (n,). Returns (buf, offsets (n, 3), bits
+    coded): mesh k's metadata is ``buf[o0:o1]``, its DIRECT_CODED
+    payload ``buf[o1:o2]``; o0 is -1 where ``skip[k]`` and -2 where the
+    mesh is left to the per-mesh writers. None without a toolchain."""
+    lib = load_library()
+    if lib is None:
+        return None
+    n, T, C = symbols.shape
+    if bits.shape != (n, T) or skip.shape != (n,):
+        raise ValueError(f"chain payloads: bits {bits.shape} and skip "
+                         f"{skip.shape} do not fit symbols {symbols.shape}")
+    if symbols.dtype not in (np.int32, np.uint32):
+        raise ValueError(f"chain payloads: symbols of {symbols.dtype}")
+    # int32 symbols are read as uint32: a negative one exceeds 2^24 and
+    # leaves its mesh to the per-mesh writers, which raise on it
+    syms = np.ascontiguousarray(symbols).view(np.uint32)
+    bits_u8 = np.ascontiguousarray(bits, dtype=bool).view(np.uint8)
+    skip_u8 = np.ascontiguousarray(skip, dtype=bool).view(np.uint8)
+    if flags is None:
+        flags_u8 = None
+        lo = hi = np.zeros(n, dtype=np.int32)
+    else:
+        if flags.shape != (n, T) or vmin.shape != (n,) \
+                or vmax.shape != (n,):
+            raise ValueError("chain payloads: flags, vmin or vmax do not "
+                             "fit the symbols")
+        flags_u8 = np.ascontiguousarray(flags, dtype=bool).view(np.uint8)
+        lo = np.ascontiguousarray(vmin, dtype=np.int32)
+        hi = np.ascontiguousarray(vmax, dtype=np.int32)
+    # a mesh: metadata at most T + 32 bytes; a payload at most 3 bytes a
+    # symbol, 3 a table entry and 64 more (tdn_encode_direct); a mesh
+    # past this leaves the call, not the result
+    S = min(int(syms.max()) + 1 if syms.size else 1, 1 << 16)
+    cap = n * (T + 4 * T * C + 3 * S + 128)
+    out = np.empty(cap, dtype=np.uint8)
+    offs = np.empty((n, 3), dtype=np.int64)
+    n_bits = np.zeros(1, dtype=np.int64)
+    used = lib.tdn_chain_payloads(
+        n, T, C, _u8p(bits_u8), None if flags_u8 is None else _u8p(flags_u8),
+        syms.ctypes.data, _u8p(skip_u8), _i32p(lo), _i32p(hi), n_mx,
+        _u8p(out), cap, offs.ctypes.data, n_bits.ctypes.data)
+    return out[:used].tobytes(), offs, int(n_bits[0])
 
 
 def predict_wrapped_zigzag(vals: np.ndarray, origs_idx: np.ndarray,

@@ -473,9 +473,60 @@ def _attribute_eligible(meshes, idxs, att_idx, pos_id, n_comp):
 
 
 def _direct_coded_payload(symbols: np.ndarray) -> bytes:
+    """One mesh's symbols as a DIRECT_CODED section: the host's C++ coder
+    where it runs, else the numpy one."""
     w = ByteWriter()
     encode_symbols(symbols.astype(np.uint64).ravel(), 2, DIRECT_CODED, w)
     return w.getvalue()
+
+
+def _chain_meta(row, n_mx: int = 0, lo: int | None = None,
+                hi: int | None = None) -> bytes:
+    """One mesh's chain metadata: the NORMAL transform's two u32 and its
+    flips ``row`` (``lo`` None), or the TEX_COORD orientations ``row``
+    and the u32 range ``lo``, ``hi``."""
+    xw = ByteWriter()
+    if lo is None:
+        xw.write_u32(n_mx)
+        xw.write_u32(n_mx // 2)
+        write_normal_flips(row, xw)
+    else:
+        write_tex_orientations(row, xw)
+        xw.write_u32(int(lo) & 0xFFFFFFFF)
+        xw.write_u32(int(hi) & 0xFFFFFFFF)
+    return xw.getvalue()
+
+
+def _chain_payloads(syms: np.ndarray, skip: np.ndarray, bits: np.ndarray,
+                    flags: np.ndarray | None = None, vmin=None, vmax=None,
+                    n_mx: int = 0) -> tuple[dict, dict]:
+    """The entries {k: {"payload", "xform_meta"}} of one NORMAL (``flags``
+    None: ``bits`` the flips, ``n_mx`` the wire's maximum) or TEX_COORD
+    attribute (``bits`` the orientation values, ``flags`` which are coded,
+    ``vmin`` / ``vmax`` the ranges) for every mesh k of a chunk not in
+    ``skip``, and the ``chains.payloads`` span's counts. One native call
+    writes them all (``native.chain_payloads``); a mesh it leaves, and
+    every mesh without the library, takes ``_chain_meta`` and
+    ``_direct_coded_payload``, which write the same bytes."""
+    got = native.chain_payloads(syms, skip, bits, flags, vmin, vmax, n_mx)
+    buf, offs, n_bits = got if got is not None else (b"", None, 0)
+    offs = offs.tolist() if offs is not None else [(-2, 0, 0)] * len(skip)
+    out = {}
+    for k, (a, b, c) in enumerate(offs):
+        if skip[k]:
+            continue
+        if a >= 0:
+            out[k] = {"payload": buf[b:c], "xform_meta": buf[a:b]}
+            continue
+        if flags is None:
+            row, meta = bits[k], {"n_mx": n_mx}
+        else:
+            row, meta = bits[k][flags[k]], {"lo": vmin[k], "hi": vmax[k]}
+        n_bits += len(row)
+        out[k] = {"payload": _direct_coded_payload(syms[k]),
+                  "xform_meta": _chain_meta(row, **meta)}
+    return out, {"meshes": len(out), "skipped": int(np.count_nonzero(skip)),
+                 "bits": n_bits, "native": got is not None}
 
 
 def _normal_chain_fits(ring: int, bits: int) -> bool:
@@ -561,7 +612,6 @@ def _device_extra_attribute_entries(meshes, idxs, topo: PreparedTopology,
     # the chains take int32 values: each shard's upload widened on its device
     q_pos = [widen(q) for q in q_pos]
     uo_pos = replicate(pos_att0.unique_indices().astype(np.int64), axis)
-    n = len(idxs)
 
     for ni in normal_idxs:
         uo_nrm = mesh0.attributes[ni].unique_indices().astype(np.int64)
@@ -572,18 +622,12 @@ def _device_extra_attribute_entries(meshes, idxs, topo: PreparedTopology,
             q_pos, stacked(ni), *tables, uo_pos, uo_nrm, bits=normal_bits,
             mesh_axis=axis)
         syms, flips = s.cpu().numpy(), f.cpu().numpy()
-        n_mx = (1 << normal_bits) - 1
-        with trace.span("chains.payloads"):
-            for k in range(n):
-                if not nrm_ok[ni][k]:
-                    continue
-                xw = ByteWriter()
-                xw.write_u32(n_mx)
-                xw.write_u32(n_mx // 2)
-                write_normal_flips(flips[k].tolist(), xw)
-                out.setdefault(k, {})[ni] = {
-                    "payload": _direct_coded_payload(syms[k]),
-                    "xform_meta": bytes(xw.getvalue())}
+        with trace.span("chains.payloads") as sp:
+            got, counts = _chain_payloads(syms, ~nrm_ok[ni], flips,
+                                          n_mx=(1 << normal_bits) - 1)
+            sp.note(**counts)
+        for k, entry in got.items():
+            out.setdefault(k, {})[ni] = entry
     for ui in uv_idxs:
         q_uv = [widen(q) for q in _upload(
             _host_quantize(uv_batches[ui], uv_bits)[0], uv_bits, axis)[0]]
@@ -592,17 +636,13 @@ def _device_extra_attribute_entries(meshes, idxs, topo: PreparedTopology,
              for d in axis]
         syms, vmin, vmax, ovals, oflags, risky = uv_encode_chain_sharded(
             q_pos, q_uv, g, uo_pos, uo_uv, mesh_axis=axis)
-        with trace.span("chains.payloads"):
-            for k in range(n):
-                if risky[k]:
-                    continue  # host path handles this mesh's UVs exactly
-                xw = ByteWriter()
-                write_tex_orientations(ovals[k][oflags[k]].tolist(), xw)
-                xw.write_u32(int(vmin[k]) & 0xFFFFFFFF)
-                xw.write_u32(int(vmax[k]) & 0xFFFFFFFF)
-                out.setdefault(k, {})[ui] = {
-                    "payload": _direct_coded_payload(syms[k]),
-                    "xform_meta": bytes(xw.getvalue())}
+        # a risky mesh's UVs take the host path, which codes them exactly
+        with trace.span("chains.payloads") as sp:
+            got, counts = _chain_payloads(syms, risky, ovals, oflags, vmin,
+                                          vmax)
+            sp.note(**counts)
+        for k, entry in got.items():
+            out.setdefault(k, {})[ui] = entry
     return out
 
 
@@ -621,14 +661,8 @@ def _host_entropy_payloads(dev_c: dict, bits: int) -> list[bytes]:
         raise RuntimeError(f"histogram lost symbols: {n_counted} of "
                            f"{syms.size} counted")
 
-    def one(sym):
-        w = ByteWriter()
-        encode_symbols(sym.astype(np.uint64).ravel(), sym.shape[-1],
-                       DIRECT_CODED, w)
-        return w.getvalue()
-
     with ThreadPoolExecutor(max_workers=8) as pool:
-        return list(pool.map(one, syms))
+        return list(pool.map(_direct_coded_payload, syms))
 
 
 def _stage_timings(totals: dict, resident: bool = False) -> dict:
@@ -1033,10 +1067,8 @@ class BatchEncoder:
         result, which the assembly then does not redo. Attributes without
         an entry are coded by the host encoder inside the assembly, at
         ``self.cfg``'s depths."""
-        w = ByteWriter()
         with trace.span("assembly.rans"):
-            encode_symbols(symbols.astype(np.uint64).ravel(),
-                           symbols.shape[-1], DIRECT_CODED, w)
+            payload = _direct_coded_payload(symbols)
         meta = ByteWriter()
         meta.write_u32(int(vmin) & 0xFFFFFFFF)
         meta.write_u32(int(vmax) & 0xFFFFFFFF)
@@ -1045,7 +1077,7 @@ class BatchEncoder:
         dflt = self._resolve_depths(bits)
         cfg = _merged_quant_cfg(self.cfg, bits, dflt["normal_bits"],
                                 dflt["uv_bits"])
-        pre = {pos_idx: {"payload": w.getvalue(),
+        pre = {pos_idx: {"payload": payload,
                          "xform_meta": bytes(meta.getvalue()), **(port or {})}}
         pre.update(extra_pre or {})
         return encode_with_topology(mesh, topo, cfg=cfg, precomputed=pre)

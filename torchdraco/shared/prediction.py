@@ -493,18 +493,24 @@ class NormalPrediction(BasePrediction):
 def write_normal_flips(flips, writer) -> None:
     """Flip bits RAbS-coded, written in forward order
     (mesh_normal_prediction.rs:147-164). Shared by the host predictor and
-    the device normal chain's metadata assembly."""
-    from ..entropy.rans import RabsEncoder
-    from ..wire.varint import leb128_write
-    flips = [bool(f) for f in flips]
-    n0 = sum(1 for f in flips if not f)
-    zp = int(np.float32(n0) / np.float32(len(flips)) * np.float32(256.0)
+    the device normal chain's metadata assembly; ``flips`` is any
+    array-like of truth values. No flips raises: the zero probability
+    is then 0 / 0."""
+    flips = np.asarray(flips, dtype=bool).ravel()
+    n0 = flips.size - int(np.count_nonzero(flips))
+    zp = int(np.float32(n0) / np.float32(flips.size) * np.float32(256.0)
              + np.float32(0.5))
     zero_prob = max(1, min(255, zp))
     writer.write_u8(zero_prob)
+    _write_rabs_bits(flips, zero_prob, writer)
+
+
+def _write_rabs_bits(bits: np.ndarray, zero_prob: int, writer) -> None:
+    """leb128 length, then the RAbS blob of ``bits`` in one coder call."""
+    from ..entropy.rans import RabsEncoder
+    from ..wire.varint import leb128_write
     enc = RabsEncoder(zero_prob)
-    for f in flips:
-        enc.write(1 if f else 0)
+    enc.write_all(bits)
     blob = enc.flush()
     leb128_write(len(blob), writer)
     writer.write_bytes(blob)
@@ -842,38 +848,20 @@ class TexCoordPrediction(BasePrediction):
 def write_tex_orientations(orientations, writer) -> None:
     """u32 count, prob byte, RAbS-coded delta-orientation bits
     (mesh_prediction_for_texture_coordinates.rs:221-260). Shared by the
-    host predictor and the device UV chain's metadata assembly."""
-    from ..entropy.rans import RabsEncoder
-    from ..wire.varint import leb128_write
-    orientations = [bool(o) for o in orientations]
-    # change count computed with a *forward* delta chain...
-    n0 = 0
-    last = True
-    for o in orientations:
-        if o != last:
-            last = o
-            n0 += 1
-    denom = np.float32(len(orientations)) + np.float32(0.001)
+    host predictor and the device UV chain's metadata assembly;
+    ``orientations`` is any array-like of truth values."""
+    o = np.asarray(orientations, dtype=bool).ravel()
+    # change count computed with a *forward* delta chain from True...
+    n0 = int(np.count_nonzero(np.diff(o, prepend=True)))
+    denom = np.float32(o.size) + np.float32(0.001)
     zp = int(np.float32(n0) / denom * np.float32(256.0) + np.float32(0.5))
     zero_prob = max(1, min(255, zp))
-    writer.write_u32(len(orientations))
+    writer.write_u32(o.size)
     writer.write_u8(zero_prob)
-    # ...but the bits themselves use a reverse delta chain, re-reversed
-    # before coding (the reference's exact quirk)
-    last = True
-    rev_bits = []
-    for o in reversed(orientations):
-        if o == last:
-            rev_bits.append(1)
-        else:
-            last = o
-            rev_bits.append(0)
-    enc = RabsEncoder(zero_prob)
-    for bit in reversed(rev_bits):
-        enc.write(bit)
-    blob = enc.flush()
-    leb128_write(len(blob), writer)
-    writer.write_bytes(blob)
+    # ...but the bits themselves use a reverse delta chain from True,
+    # re-reversed before coding (the reference's exact quirk): bit i is
+    # o[i] == o[i + 1], with a True past the end
+    _write_rabs_bits(~np.diff(o, append=True), zero_prob, writer)
 
 
 def make_prediction(scheme_id: int, view: TableView, parents, n: int,
