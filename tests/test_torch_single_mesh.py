@@ -407,7 +407,7 @@ def test_chunked_route_matches_encode(kind, chunk):
     be = tbatch.BatchEncoder()
     got = be.encode_mesh_device_chunked(mesh, chunk=chunk, device="cpu")
     assert got == encode(mesh)
-    assert {"pass1_s", "pass2_s", "pass3_s", "assembly_s"} <= set(be.timings)
+    assert set(be.timings) == {"topology_s", "position_s", "assembly_s"}
     if kind == "grid" and chunk == 64:
         assert got == JaxBatchEncoder(strict_device=True) \
             .encode_mesh_device_chunked(mesh, chunk=chunk)
@@ -479,6 +479,62 @@ def test_encode_huge_dispatches_by_size(monkeypatch):
                      "encode_mesh_device"]
     assert tbatch.BatchEncoder.CHUNKED_MIN_VERTS == \
         JaxBatchEncoder.CHUNKED_MIN_VERTS
+
+
+# the keys of each device route's ``timings``
+_ROUTE_STAGES = {
+    "group": {"signatures_s", "topology_s", "position_s", "chains_s",
+              "assembly_s", "h2d_mb"},
+    "resident": {"topology_s", "position_s", "chains_s", "assembly_s"},
+    "chunked": {"topology_s", "position_s", "assembly_s"},
+    "stream_sharded": {"topology_s", "position_s", "assembly_s"},
+}
+
+
+@pytest.mark.parametrize("route", sorted(_ROUTE_STAGES))
+def test_every_device_route_times_its_stages(monkeypatch, route):
+    """One mesh with normals and UVs through each device route: the group
+    path at B = 1, the resident route, the chunked route and the
+    stream-sharded route over two devices give encode()'s bytes and
+    ``timings`` of the route's stage keys, from the route's root. A lone
+    mesh that the router sends to a single-mesh route adds that route's
+    stages to the router's ``timings``."""
+    mesh = _grid_mesh_with_normals(12, 4)
+    run = {
+        "group": lambda e: e.encode_meshes_device([mesh], device="cpu")[0],
+        "resident": lambda e: e.encode_mesh_device(mesh, device="cpu"),
+        "chunked": lambda e: e.encode_mesh_device_chunked(mesh, chunk=64,
+                                                          device="cpu"),
+        "stream_sharded": lambda e: e.encode_mesh_device_stream_sharded(
+            mesh, ["cpu"] * 2)}[route]
+    enc = tbatch.BatchEncoder()
+    assert run(enc) == encode(mesh)
+    assert set(enc.timings) == _ROUTE_STAGES[route]
+    assert all(v >= 0 for v in enc.timings.values())
+    if route not in ("resident", "chunked"):
+        return
+    # every mesh of 4 vertices or more is huge; the chunked route takes
+    # any mesh past a resident peak of 0 bytes
+    monkeypatch.setattr(tbatch.BatchEncoder, "CHUNKED_MIN_VERTS", 1)
+    if route == "chunked":
+        monkeypatch.setattr(tbatch.BatchEncoder, "RESIDENT_MAX_BYTES", 0)
+    name = {"resident": "encode_mesh_device",
+            "chunked": "encode_mesh_device_chunked"}[route]
+    real, inner = getattr(tbatch.BatchEncoder, name), []
+
+    def spy(self, *args, **kw):
+        out = real(self, *args, **kw)
+        inner.append(dict(self.timings))
+        return out
+    monkeypatch.setattr(tbatch.BatchEncoder, name, spy)
+    router = tbatch.BatchEncoder(device="cpu", route_cache_path=None)
+    assert router.encode_meshes_auto([mesh]) == [encode(mesh)]
+    assert router.routing_log[0]["plane"] == "device"
+    (t,), got = inner, router.timings
+    for k in _ROUTE_STAGES[route] - {"topology_s"}:
+        assert got[k] > 0 and got[k] == pytest.approx(t[k], rel=1e-12), k
+    # the router's signatures are its own, the route's count as topology
+    assert got["signatures_s"] + got["topology_s"] >= t["topology_s"]
 
 
 @pytest.mark.parametrize("fan", (0, 13))

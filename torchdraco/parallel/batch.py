@@ -373,7 +373,8 @@ def _host_quantize(batch: np.ndarray, bits: int):
     """Quantize a (B, V, C) float32 batch on the host (C++, the canonical
     formula; numpy where the native library is missing or the depth passes
     16 bits, and for non-finite input, which raises there). Returns (q,
-    mins, delta_max, vmin, vmax): q uint16 up to 16 bits, int32 past it."""
+    mins, delta_max, vmin, vmax): q uint16 up to 16 bits, int32 past it;
+    vmin and vmax int32."""
     got = native.quantize_batch(batch, bits) if bits <= 16 else None
     if got is not None:
         return got
@@ -442,8 +443,6 @@ def device_encode_group(positions_batch: np.ndarray, topo: PreparedTopology,
     axis = axis_for(device, mesh_axis)
     B, V, C = positions_batch.shape
     q_np, mins, delta_max, vmin, vmax = _host_quantize(positions_batch, bits)
-    vmin = np.asarray(vmin, np.int32)
-    vmax = np.asarray(vmax, np.int32)
     q_up, h2d_bytes = _upload(q_np, bits, axis)
     shards = {"symbols": [], "counts": [], "q_dev": []}
     for dev, q_dev, lo, hi in zip(axis, q_up, *(shard_rows(x, axis)
@@ -646,30 +645,73 @@ def _device_extra_attribute_entries(meshes, idxs, topo: PreparedTopology,
     return out
 
 
-def _host_entropy_payloads(dev_c: dict, bits: int) -> list[bytes]:
-    """``entropy="host"``: the chunk's position symbols read back (uint16
-    where ``bits + 1 <= 16``: zigzag symbols stay below 2^(bits+1)) and
-    each mesh's DirectCoded payload made by the host's C++ coder, on a
-    pool of 8 threads. K2's counts are held to the symbol count, as the
-    device coder holds them. The shards are read back in axis order."""
-    parts, counts = dev_c["symbols"], dev_c["counts"]
-    if bits + 1 <= 16:
-        parts = [p.to(torch.uint16) for p in parts]
+def _read_symbols(sym: torch.Tensor, bits: int) -> np.ndarray:
+    """Position symbols moved to the host, as uint16 where ``bits + 1 <=
+    16`` (zigzag symbols stay below 2^(bits+1): half the bytes)."""
+    return (sym.to(torch.uint16) if bits + 1 <= 16 else sym).cpu().numpy()
+
+
+def _check_counted(counts: list, symbols: np.ndarray) -> None:
+    """Raise where K2's histograms ``counts`` do not count every symbol
+    read back (a RuntimeError, which ``-O`` does not strip)."""
     n_counted = sum(int(c.sum()) for c in counts)
-    syms = np.concatenate([p.cpu().numpy() for p in parts])
-    if n_counted != syms.size:
+    if n_counted != symbols.size:
         raise RuntimeError(f"histogram lost symbols: {n_counted} of "
-                           f"{syms.size} counted")
-
-    with ThreadPoolExecutor(max_workers=8) as pool:
-        return list(pool.map(_direct_coded_payload, syms))
+                           f"{symbols.size} counted")
 
 
-def _stage_timings(totals: dict, resident: bool = False) -> dict:
-    """An encode root's ``timings`` from its span totals (ns): the stages
-    in seconds, K1's tile tables (``position.tiles``) counted as topology
-    work and not as the position path's, and, in the resident route,
-    the signatures too."""
+def _position_entry(mesh, payload: bytes, quant: dict, k: int,
+                    bits: int) -> dict:
+    """{POSITION index: the precomputed entry} of mesh ``k`` of a route's
+    quantize results ``quant``: ``payload``, the residual range ``vmin``,
+    ``vmax`` as the transform's two u32 and, where the host quantize ran
+    (``quant`` holds ``_host_quantize``'s ``q``, ``mins``, ``delta_max``),
+    the quantization metadata and values, which the assembly then does
+    not redo."""
+    w = ByteWriter()
+    w.write_u32(int(quant["vmin"][k]) & 0xFFFFFFFF)
+    w.write_u32(int(quant["vmax"][k]) & 0xFFFFFFFF)
+    entry = {"payload": payload, "xform_meta": bytes(w.getvalue())}
+    if "q" in quant:
+        entry.update(
+            port_meta=quant["mins"][k].astype("<f4").tobytes()
+            + quant["delta_max"][k:k + 1].astype("<f4").tobytes()
+            + bytes([bits]),
+            port_values=quant["q"][k])
+    pos_idx = next(j for j, a in enumerate(mesh.attributes)
+                   if a.att_type == AttributeType.POSITION)
+    return {pos_idx: entry}
+
+
+def _host_coded_chains(mesh, pre: dict) -> int:
+    """The NORMAL and TEX_COORD attributes of ``mesh`` without an entry
+    in ``pre``: a guard of the chains left them to the host encoder."""
+    return sum(1 for j, a in enumerate(mesh.attributes)
+               if a.att_type in _CHAIN_TYPES and j not in pre)
+
+
+def _assemble_precomputed(mesh, topo: PreparedTopology, cfg,
+                          symbols: np.ndarray, quant: dict, bits: int,
+                          extra_pre: dict | None = None) -> bytes:
+    """The .drc of a single-mesh route's mesh at its route's ``cfg``: the
+    host's C++ rANS coder (DIRECT_CODED) codes its position symbols (T,
+    C), ``_position_entry`` makes their entry, ``extra_pre`` adds device
+    entries of other attributes. Attributes without an entry are coded
+    by the host encoder inside the assembly."""
+    with trace.span("assembly.rans"):
+        payload = _direct_coded_payload(symbols)
+    pre = _position_entry(mesh, payload, quant, 0, bits)
+    pre.update(extra_pre or {})
+    return encode_with_topology(mesh, topo, cfg=cfg, precomputed=pre)
+
+
+def _stage_timings(totals: dict, single: bool = False) -> dict:
+    """An encode root's ``timings`` from its totals (``trace.root``): the
+    stages in seconds, K1's tile tables (``position.tiles``) counted as
+    topology work and not as the position path's. In a single-mesh route
+    the signatures count as topology work too, and ``chains_s`` is there
+    where the route runs the chains; elsewhere ``h2d_mb`` is the
+    megabytes the group path uploaded (the total ``h2d_bytes``)."""
     s = {k: v * 1e-9 for k, v in totals.items()}
     tiles = s.get("position.tiles", 0.0)
     out = {"signatures_s": s.get("signatures", 0.0),
@@ -677,8 +719,12 @@ def _stage_timings(totals: dict, resident: bool = False) -> dict:
            "position_s": s.get("position", 0.0) - tiles,
            "chains_s": s.get("chains", 0.0),
            "assembly_s": s.get("assembly", 0.0)}
-    if resident:
-        out["topology_s"] += out.pop("signatures_s")
+    if not single:
+        out["h2d_mb"] = totals.get("h2d_bytes", 0) / 1e6
+        return out
+    out["topology_s"] += out.pop("signatures_s")
+    if "chains" not in totals:
+        del out["chains_s"]
     return out
 
 
@@ -693,17 +739,17 @@ class BatchEncoder:
     chains sent to the host encoder (per mesh and attribute); ``timings``
     holds the host seconds of the last device call by stage
     (``position_s``: the quantize, upload, fused step and rANS coder of the
-    position attribute; ``chains_s``: the NORMAL and TEX_COORD chains with
-    their readback and host payloads; the chunked route's ``pass1_s`` ...
-    ``pass3_s``) and, for ``encode_meshes_device``, ``h2d_mb``: the
-    megabytes of quantized positions uploaded, in their layout
-    (``upload_layout``). In ``encode_meshes_device`` and
-    ``encode_mesh_device`` they are the per-call totals of the call's spans
-    (``torchdraco.trace``): ``signatures_s``, ``chains_s`` and
-    ``assembly_s`` those of the spans of that name, ``position_s`` the
-    ``position`` spans less K1's tile-table builds (``position.tiles``),
-    which count in ``topology_s`` beside ``topology`` (and, in
-    ``encode_mesh_device``, ``signatures``). After ``encode_meshes_auto``
+    position attribute, or the chunked route's three passes; ``chains_s``:
+    the NORMAL and TEX_COORD chains with their readback and host payloads)
+    and, for ``encode_meshes_device``, ``h2d_mb``: the megabytes of
+    quantized positions uploaded, in their layout (``upload_layout``).
+    Every device route is a root of spans (``torchdraco.trace``), and its
+    ``timings`` are the call's totals (``_stage_timings``):
+    ``signatures_s``, ``chains_s`` and ``assembly_s`` those of the spans
+    of that name, ``position_s`` the ``position`` spans less K1's
+    tile-table builds (``position.tiles``), which count in ``topology_s``
+    beside ``topology`` (and, in the single-mesh routes,
+    ``signatures``). After ``encode_meshes_auto``
     they describe the whole call: its device-plane calls' stages summed,
     the probes' and the host plane's seconds and the groups' counts (see
     there). To see the spans themselves,
@@ -919,34 +965,19 @@ class BatchEncoder:
             raise ValueError(f"entropy must be 'device' or 'host', "
                              f"got {entropy!r}")
         axis = self._axis(device)
-        dflt = _device_quant_bits(self.cfg)
-        if dflt is None:
-            raise ValueError(
-                "BatchEncoder.cfg goes beyond the device batch's config "
-                "space (quantization depths only)")
-        bits = dflt["bits"] if bits is None else bits
-        normal_bits = (dflt["normal_bits"] if normal_bits is None
-                       else normal_bits)
-        uv_bits = dflt["uv_bits"] if uv_bits is None else uv_bits
-        if not _depths_in_range(bits, normal_bits, uv_bits):
-            raise ValueError(
-                f"quantization depths out of range (position {bits}, "
-                f"normal {normal_bits} [7..16], texcoord {uv_bits})")
-        cfg = _merged_quant_cfg(self.cfg, bits, normal_bits, uv_bits)
-
-        h2d_bytes = 0
+        depths, cfg = self._resolve_depths(bits, normal_bits, uv_bits)
         with trace.root("encode_meshes_device", meshes=len(meshes)) as call:
             with trace.timed("signatures"):
                 groups: dict[str, list[int]] = {}
                 for idx, m in enumerate(meshes):
                     groups.setdefault(topology_signature(m), []).append(idx)
             out: list[bytes | None] = [None] * len(meshes)
+            # the upload's bytes ride the totals up to an enclosing root
+            call.totals["h2d_bytes"] = 0
             for sig, idxs in groups.items():
-                h2d_bytes += self._encode_group_device(
-                    meshes, sig, idxs, out, bits, normal_bits, uv_bits, cfg,
-                    entropy, axis)
-        self.timings = dict(_stage_timings(call.totals),
-                            h2d_mb=h2d_bytes / 1e6)
+                call.totals["h2d_bytes"] += self._encode_group_device(
+                    meshes, sig, idxs, out, depths, cfg, entropy, axis)
+        self.timings = _stage_timings(call.totals)
         return out
 
     def _device_plane(self, meshes: list, device=None) -> list:
@@ -965,12 +996,11 @@ class BatchEncoder:
                 out[i] = blob
         return out
 
-    def _encode_group_device(self, meshes, sig, idxs, out, bits,
-                             normal_bits, uv_bits, cfg, entropy,
-                             axis) -> int:
-        """One topology group of ``encode_meshes_device`` into ``out``,
-        over the devices ``axis``; returns the bytes of quantized positions
-        uploaded."""
+    def _encode_group_device(self, meshes, sig, idxs, out, depths: dict,
+                             cfg, entropy, axis) -> int:
+        """One topology group of ``encode_meshes_device`` into ``out`` at
+        the resolved ``depths`` and ``cfg``, over the devices ``axis``;
+        returns the bytes of quantized positions uploaded."""
         with trace.timed("topology"):
             topo = self._topo_cache.get(sig)
             if topo is None:
@@ -979,7 +1009,7 @@ class BatchEncoder:
         pos_att0 = meshes[idxs[0]].position_attribute()
         batch = np.stack([meshes[i].position_attribute().values
                           .astype(np.float32) for i in idxs])
-        bits_byte = bytes([bits])
+        bits = depths["bits"]
         h2d_bytes = 0
         for c0 in range(0, len(idxs), self.DEVICE_CHUNK):
             chunk = idxs[c0:c0 + self.DEVICE_CHUNK]
@@ -990,37 +1020,26 @@ class BatchEncoder:
                 if entropy == "device":
                     payloads = encode_group_entropy_device(
                         dev_c["symbols"], dev_c["counts"], mesh_axis=axis)
-                else:
-                    payloads = _host_entropy_payloads(dev_c, bits)
+                else:  # the shards in axis order, the host's C++ coder
+                    syms = np.concatenate([_read_symbols(p, bits)
+                                           for p in dev_c["symbols"]])
+                    _check_counted(dev_c["counts"], syms)
+                    with ThreadPoolExecutor(max_workers=8) as pool:
+                        payloads = list(pool.map(_direct_coded_payload, syms))
             h2d_bytes += dev_c["h2d_bytes"]
             with trace.timed("chains"):
                 # the NORMAL and TEX_COORD chains read the positions the
                 # fused step uploaded: quantized once, uploaded once
                 extra = _device_extra_attribute_entries(
-                    meshes, chunk, topo, bits=bits, normal_bits=normal_bits,
-                    uv_bits=uv_bits, q_pos=dev_c["q_dev"], mesh_axis=axis)
+                    meshes, chunk, topo, **depths, q_pos=dev_c["q_dev"],
+                    mesh_axis=axis)
             with trace.timed("assembly"):
                 for k, i in enumerate(chunk):
-                    w = ByteWriter()
-                    w.write_u32(int(dev_c["vmin"][k]) & 0xFFFFFFFF)
-                    w.write_u32(int(dev_c["vmax"][k]) & 0xFFFFFFFF)
-                    pos_idx = next(
-                        j for j, a in enumerate(meshes[i].attributes)
-                        if a.att_type == AttributeType.POSITION)
-                    # quantization already ran on the host: hand the
-                    # assembly its metadata bytes and values, so it does
-                    # not re-quantize the mesh
-                    port_meta = (dev_c["mins"][k].astype("<f4").tobytes()
-                                 + dev_c["delta_max"][k:k + 1]
-                                 .astype("<f4").tobytes() + bits_byte)
-                    pre = {pos_idx: {"payload": payloads[k],
-                                     "xform_meta": bytes(w.getvalue()),
-                                     "port_meta": port_meta,
-                                     "port_values": dev_c["q"][k]}}
+                    pre = _position_entry(meshes[i], payloads[k], dev_c, k,
+                                          bits)
                     pre.update(extra.get(k, {}))
-                    self.n_host_attributes += sum(
-                        1 for j, a in enumerate(meshes[i].attributes)
-                        if a.att_type in _CHAIN_TYPES and j not in pre)
+                    self.n_host_attributes += _host_coded_chains(meshes[i],
+                                                                 pre)
                     out[i] = encode_with_topology(meshes[i], topo, cfg=cfg,
                                                   precomputed=pre)
         self._dev_cache_touch(sig, topo)
@@ -1040,47 +1059,28 @@ class BatchEncoder:
                 topo = self._topo_cache[key] = PreparedTopology(mesh)
         return key, topo
 
-    def _resolve_depths(self, bits: int | None) -> dict:
-        """The single-mesh device routes' depths: ``bits`` (-qp) when given,
-        the rest from ``self.cfg``, which must hold quantization depths
-        only (other overrides cannot ride the precomputed positions)."""
-        dflt = _device_quant_bits(self.cfg)
-        if dflt is None:
+    def _resolve_depths(self, bits: int | None = None,
+                        normal_bits: int | None = None,
+                        uv_bits: int | None = None
+                        ) -> tuple[dict, Config | None]:
+        """The device routes' depths and assembly Config: each depth given
+        (-qp, -qn, -qt), the rest from ``self.cfg``, which must hold
+        quantization depths only (other overrides cannot ride the
+        precomputed positions)."""
+        depths = _device_quant_bits(self.cfg)
+        if depths is None:
             raise ValueError(
                 "BatchEncoder.cfg goes beyond the device routes' config "
-                "space (quantization depths only); encode this mesh with "
+                "space (quantization depths only); encode such meshes with "
                 "encode_mesh instead")
-        if bits is not None:
-            dflt["bits"] = bits
-        if not _depths_in_range(**dflt):
-            raise ValueError(f"quantization depths out of range {dflt}")
-        return dflt
-
-    def _assemble_precomputed(self, mesh, topo: PreparedTopology,
-                              symbols: np.ndarray, vmin: int, vmax: int,
-                              bits: int, extra_pre: dict | None = None,
-                              port: dict | None = None) -> bytes:
-        """The .drc of one mesh from its position symbols (T, C) and
-        residual range: the host's C++ rANS coder (DIRECT_CODED) codes the
-        symbols, ``extra_pre`` adds device entries of other attributes,
-        ``port`` (``port_meta``, ``port_values``) the host quantize's
-        result, which the assembly then does not redo. Attributes without
-        an entry are coded by the host encoder inside the assembly, at
-        ``self.cfg``'s depths."""
-        with trace.span("assembly.rans"):
-            payload = _direct_coded_payload(symbols)
-        meta = ByteWriter()
-        meta.write_u32(int(vmin) & 0xFFFFFFFF)
-        meta.write_u32(int(vmax) & 0xFFFFFFFF)
-        pos_idx = next(j for j, a in enumerate(mesh.attributes)
-                       if a.att_type == AttributeType.POSITION)
-        dflt = self._resolve_depths(bits)
-        cfg = _merged_quant_cfg(self.cfg, bits, dflt["normal_bits"],
-                                dflt["uv_bits"])
-        pre = {pos_idx: {"payload": payload,
-                         "xform_meta": bytes(meta.getvalue()), **(port or {})}}
-        pre.update(extra_pre or {})
-        return encode_with_topology(mesh, topo, cfg=cfg, precomputed=pre)
+        given = {"bits": bits, "normal_bits": normal_bits, "uv_bits": uv_bits}
+        depths.update((k, v) for k, v in given.items() if v is not None)
+        if not _depths_in_range(**depths):
+            raise ValueError(
+                f"quantization depths out of range (position "
+                f"{depths['bits']}, normal {depths['normal_bits']} [7..16], "
+                f"texcoord {depths['uv_bits']})")
+        return depths, _merged_quant_cfg(self.cfg, **depths)
 
     def encode_mesh_device(self, mesh, bits: int | None = None,
                            device=None) -> bytes:
@@ -1088,13 +1088,13 @@ class BatchEncoder:
         (None: the encoder's ``device``, else the card; ``"cpu"`` runs
         the plain twins): the host C++ quantize, one upload in the layout
         of the depth (``upload_layout``), K1 and K2 at B = 1, the NORMAL and
-        TEX_COORD chains on the same uploaded positions, one readback of the symbols (uint16 where ``bits + 1 <=
-        16``), and the host's C++ rANS coder and assembly. The position
-        symbols form one rANS
-        stream, which one lane of K3 would code at one dependent step a
-        symbol; the host coder does it. Output equals ``encode()``; a guard
+        TEX_COORD chains on the same uploaded positions, one readback of
+        the symbols (``_read_symbols``), and the host's C++ rANS coder and
+        assembly. The position symbols form one rANS stream, which one lane
+        of K3 would code at one dependent step a symbol; the host coder
+        does it. Output equals ``encode()``; a guard
         of the chains is counted in ``n_host_attributes``; errors raise."""
-        depths = self._resolve_depths(bits)
+        depths, cfg = self._resolve_depths(bits)
         bits = depths["bits"]
         dev = self._dev(device)
         with trace.root("encode_mesh_device", meshes=1) as call:
@@ -1104,35 +1104,18 @@ class BatchEncoder:
                 pos = np.ascontiguousarray(pos_att.values, np.float32)[None]
                 dev_c = device_encode_group(pos, topo, pos_att, bits=bits,
                                             device=dev)
-                syms = dev_c["symbols"][0][0]
-                # zigzag symbols < 2^(bits+1): half the bytes
-                if bits + 1 <= 16:
-                    syms = syms.to(torch.uint16)
-                n_counted = int(dev_c["counts"][0].sum())
-                syms = syms.cpu().numpy()
-                if n_counted != syms.size:
-                    raise RuntimeError(f"histogram lost symbols: "
-                                       f"{n_counted} of {syms.size} counted")
+                syms = _read_symbols(dev_c["symbols"][0][0], bits)
+                _check_counted(dev_c["counts"], syms)
             with trace.timed("chains"):
-                extra = _device_extra_attribute_entries(
-                    [mesh], [0], topo, bits=bits,
-                    normal_bits=depths["normal_bits"],
-                    uv_bits=depths["uv_bits"], device=dev,
-                    q_pos=dev_c["q_dev"])
-                pre = extra.get(0, {})
-                self.n_host_attributes += sum(
-                    1 for j, a in enumerate(mesh.attributes)
-                    if a.att_type in _CHAIN_TYPES and j not in pre)
+                pre = _device_extra_attribute_entries(
+                    [mesh], [0], topo, **depths, device=dev,
+                    q_pos=dev_c["q_dev"]).get(0, {})
+                self.n_host_attributes += _host_coded_chains(mesh, pre)
             with trace.timed("assembly"):
-                port = {"port_meta": dev_c["mins"][0].astype("<f4").tobytes()
-                        + dev_c["delta_max"][:1].astype("<f4").tobytes()
-                        + bytes([bits]),
-                        "port_values": dev_c["q"][0]}
-                blob = self._assemble_precomputed(
-                    mesh, topo, syms, int(dev_c["vmin"][0]),
-                    int(dev_c["vmax"][0]), bits, extra_pre=pre, port=port)
+                blob = _assemble_precomputed(mesh, topo, cfg, syms, dev_c,
+                                             bits, pre)
                 self._dev_cache_touch(key, topo)
-        self.timings = _stage_timings(call.totals, resident=True)
+        self.timings = _stage_timings(call.totals, single=True)
         return blob
 
     def encode_mesh_device_chunked(self, mesh, bits: int | None = None,
@@ -1150,104 +1133,93 @@ class BatchEncoder:
         follow; the NORMAL and TEX_COORD attributes of this route are
         coded by the host inside the assembly. Output equals
         ``encode()``; errors raise."""
-        bits = self._resolve_depths(bits)["bits"]
+        depths, cfg = self._resolve_depths(bits)
+        bits = depths["bits"]
         dev = self._dev(device)
         if chunk < 1:
             raise ValueError(f"chunk must be positive, got {chunk}")
-        clock = time.perf_counter
-        t = self.timings = {}
-        t0 = clock()
-        _, topo = self._topo_for(mesh)
-        pos_att = mesh.position_attribute()
-        pos = np.ascontiguousarray(pos_att.values, dtype=np.float32)
-        g = topology_gathers_np(topo, pos_att)
-        V, N = pos.shape
-        T = len(g["order"])
-        t1 = clock()
-        t["topology_s"] = t1 - t0
+        with trace.root("encode_mesh_device_chunked", meshes=1) as call:
+            _, topo = self._topo_for(mesh)
+            with trace.timed("topology"):
+                pos_att = mesh.position_attribute()
+                pos = np.ascontiguousarray(pos_att.values, dtype=np.float32)
+                g = topology_gathers_np(topo, pos_att)
+            V, N = pos.shape
+            T = len(g["order"])
 
-        def vertex_chunks():
-            for c0 in range(0, V, chunk):
-                rows = pos[c0:c0 + chunk]
-                if len(rows) < chunk:  # pad by repeating a real row
-                    rows = np.concatenate(
-                        [rows, np.broadcast_to(pos[:1],
-                                               (chunk - len(rows), N))])
-                yield torch.from_numpy(rows).to(dev)
+            def vertex_chunks():
+                for c0 in range(0, V, chunk):
+                    rows = pos[c0:c0 + chunk]
+                    if len(rows) < chunk:  # pad by repeating a real row
+                        rows = np.concatenate(
+                            [rows, np.broadcast_to(pos[:1],
+                                                   (chunk - len(rows), N))])
+                    yield torch.from_numpy(rows).to(dev)
 
-        # pass 1: the float range (exact reduces, float32 throughout, the
-        # zero-seeded range of quantize_kernel)
-        lo = torch.full((N,), float("inf"), dtype=torch.float32, device=dev)
-        hi = torch.full((N,), float("-inf"), dtype=torch.float32,
-                        device=dev)
-        for rows in vertex_chunks():
-            mn, mx = minmax_chunk_kernel(rows)
-            lo, hi = torch.minimum(lo, mn), torch.maximum(hi, mx)
-        zero = np.float32(0)
-        mins = np.minimum(lo.cpu().numpy(), zero).astype(np.float32)
-        maxs = np.maximum(hi.cpu().numpy(), zero).astype(np.float32)
-        if V and not (np.isfinite(mins).all() and np.isfinite(maxs).all()):
-            raise ValueError("attribute POSITION contains non-finite values "
-                             "(NaN/inf); refusing to quantize")
-        delta_max = np.float32(np.max((maxs - mins).astype(np.float32)))
-        d_mins = torch.from_numpy(mins).to(dev)
-        d_delta = torch.from_numpy(np.asarray(delta_max)).to(dev)
-        t2 = clock()
+            with trace.timed("position"):
+                # pass 1: the float range (exact reduces, float32
+                # throughout, the zero-seeded range of quantize_kernel)
+                lo = torch.full((N,), float("inf"), dtype=torch.float32,
+                                device=dev)
+                hi = torch.full((N,), float("-inf"), dtype=torch.float32,
+                                device=dev)
+                for rows in vertex_chunks():
+                    mn, mx = minmax_chunk_kernel(rows)
+                    lo, hi = torch.minimum(lo, mn), torch.maximum(hi, mx)
+                zero = np.float32(0)
+                mins = np.minimum(lo.cpu().numpy(), zero).astype(np.float32)
+                maxs = np.maximum(hi.cpu().numpy(), zero).astype(np.float32)
+                if V and not (np.isfinite(mins).all()
+                              and np.isfinite(maxs).all()):
+                    raise ValueError("attribute POSITION contains non-finite "
+                                     "values (NaN/inf); refusing to quantize")
+                delta_max = np.float32(np.max((maxs - mins)
+                                              .astype(np.float32)))
+                d_mins = torch.from_numpy(mins).to(dev)
+                d_delta = torch.from_numpy(np.asarray(delta_max)).to(dev)
 
-        # pass 2: the range of the quantized values
-        qlo = torch.full((), np.iinfo(np.int32).max, dtype=torch.int32,
-                         device=dev)
-        qhi = torch.full((), np.iinfo(np.int32).min, dtype=torch.int32,
-                         device=dev)
-        for rows in vertex_chunks():
-            a, b = quantized_range_chunk_kernel(rows, d_mins, d_delta, bits)
-            qlo, qhi = torch.minimum(qlo, a), torch.maximum(qhi, b)
-        vmin, vmax = int(qlo), int(qhi)
-        t3 = clock()
+                # pass 2: the range of the quantized values
+                qlo = torch.full((), np.iinfo(np.int32).max,
+                                 dtype=torch.int32, device=dev)
+                qhi = torch.full((), np.iinfo(np.int32).min,
+                                 dtype=torch.int32, device=dev)
+                for rows in vertex_chunks():
+                    a, b = quantized_range_chunk_kernel(rows, d_mins, d_delta,
+                                                        bits)
+                    qlo, qhi = torch.minimum(qlo, a), torch.maximum(qhi, b)
+                vmin, vmax = int(qlo), int(qhi)
 
-        # pass 3: traversal segments, rows gathered on the host
-        hist_bins = default_hist_bins(bits)
-        counts = torch.zeros(hist_bins, dtype=torch.int64, device=dev)
-        masks = {k: np.asarray(g[k], bool) for k in ("can_para",
-                                                     "has_fallback")}
-        sym_parts = []
-        for s0 in range(0, T, chunk):
-            s1 = min(s0 + chunk, T)
-            n_valid = s1 - s0
+                # pass 3: traversal segments, rows gathered on the host,
+                # each segment's symbols read back before the next
+                hist_bins = default_hist_bins(bits)
+                counts = torch.zeros(hist_bins, dtype=torch.int64, device=dev)
+                sym_parts = []
 
-            def rows_of(idx):
-                r = np.zeros((chunk, N), np.float32)
-                r[:n_valid] = pos[idx[s0:s1]]
-                return torch.from_numpy(r).to(dev)
+                def padded(a):  # a segment's rows, zero-padded to chunk
+                    r = np.zeros((chunk, *a.shape[1:]), a.dtype)
+                    r[:len(a)] = a
+                    return torch.from_numpy(r).to(dev)
 
-            def mask_of(m):
-                r = np.zeros(chunk, bool)
-                r[:n_valid] = m[s0:s1]
-                return torch.from_numpy(r).to(dev)
-
-            active = np.zeros(chunk, bool)
-            active[:n_valid] = True
-            sym, cnt = encode_step_chunk(
-                *(rows_of(g[k]) for k in ("order", "next", "prev", "opp",
-                                          "fallback")),
-                mask_of(masks["can_para"]), mask_of(masks["has_fallback"]),
-                torch.from_numpy(active).to(dev), d_mins, d_delta, vmin,
-                vmax, bits=bits, hist_bins=hist_bins)
-            counts += cnt
-            if bits + 1 <= 16:
-                sym = sym.to(torch.uint16)
-            sym_parts.append(sym[:n_valid].cpu().numpy())
-        symbols = (np.concatenate(sym_parts) if sym_parts
-                   else np.zeros((0, N), np.int32))
-        n_counted = int(counts.sum())
-        if n_counted != T * N:
-            raise RuntimeError(f"chunked histogram lost symbols: "
-                               f"{n_counted} of {T * N} counted")
-        t4 = clock()
-        blob = self._assemble_precomputed(mesh, topo, symbols, vmin, vmax,
-                                          bits)
-        t.update(pass1_s=t2 - t1, pass2_s=t3 - t2, pass3_s=t4 - t3,
-                 assembly_s=clock() - t4)
+                for s0 in range(0, T, chunk):
+                    seg = slice(s0, min(s0 + chunk, T))
+                    sym, cnt = encode_step_chunk(
+                        *(padded(pos[g[k][seg]]) for k in (
+                            "order", "next", "prev", "opp", "fallback")),
+                        *(padded(np.asarray(g[k][seg], bool))
+                          for k in ("can_para", "has_fallback")),
+                        padded(np.ones(seg.stop - s0, bool)), d_mins,
+                        d_delta, vmin, vmax, bits=bits, hist_bins=hist_bins)
+                    counts += cnt
+                    sym_parts.append(_read_symbols(sym[:seg.stop - s0],
+                                                   bits))
+                symbols = (np.concatenate(sym_parts) if sym_parts
+                           else np.zeros((0, N), np.int32))
+                _check_counted([counts], symbols)
+            with trace.timed("assembly"):
+                blob = _assemble_precomputed(
+                    mesh, topo, cfg, symbols, {"vmin": [vmin], "vmax": [vmax]},
+                    bits)
+        self.timings = _stage_timings(call.totals, single=True)
         return blob
 
     def encode_mesh_device_stream_sharded(self, mesh, mesh_axis,
@@ -1265,54 +1237,42 @@ class BatchEncoder:
         mesh. Only the positions take this route: the other attributes are
         coded by the host encoder inside the assembly. Output equals
         ``encode()``; errors raise."""
-        bits = self._resolve_depths(bits)["bits"]
+        depths, cfg = self._resolve_depths(bits)
+        bits = depths["bits"]
         axis = resolve_axis(mesh_axis)
         with trace.root("encode_mesh_device_stream_sharded",
                         meshes=1) as call:
-            clock = time.perf_counter
-            t0 = clock()
             key, topo = self._topo_for(mesh)
-            pos_att = mesh.position_attribute()
-            pos = np.ascontiguousarray(pos_att.values, np.float32)[None]
-            V, C = pos.shape[1:]
-            t1 = clock()
-            q, mins, delta_max, vmin, vmax = _host_quantize(pos, bits)
-            vmin = np.asarray(vmin, np.int32)
-            vmax = np.asarray(vmax, np.int32)
-            # a segment's own tile tables, where K1 tiles
-            T = _device_gathers(topo, pos_att, axis[0], V)["order"].numel()
-            parts, counts = encode_step_stream_sharded(
-                q, [_device_gathers(topo, pos_att, d, V) for d in axis], vmin,
-                vmax, bits=bits, mesh_axis=axis,
-                tiles=[functools.partial(_device_tiles, topo, pos_att, d, V,
-                                         span)
-                       for d, span in zip(axis, shard_bounds(T, len(axis)))])
-            if bits + 1 <= 16:  # zigzag symbols < 2^(bits+1): half the bytes
-                parts = [p.to(torch.uint16) for p in parts]
-            symbols = np.concatenate([p[0].cpu().numpy() for p in parts])
-            n_counted = int(counts.sum())
-            if n_counted != symbols.size:
-                raise RuntimeError(f"stream-sharded histogram lost symbols: "
-                                   f"{n_counted} of {symbols.size} counted")
-            t2 = clock()
-            port = {"port_meta": mins[0].astype("<f4").tobytes()
-                    + delta_max[:1].astype("<f4").tobytes() + bytes([bits]),
-                    "port_values": q[0]}
-            blob = self._assemble_precomputed(mesh, topo, symbols,
-                                              int(vmin[0]), int(vmax[0]),
-                                              bits, port=port)
-            self._dev_cache_touch(key, topo)
-            # K1's tables: topology work
-            tiles_s = call.totals.get("position.tiles", 0) * 1e-9
-            self.timings = {"topology_s": t1 - t0 + tiles_s,
-                            "position_s": t2 - t1 - tiles_s,
-                            "assembly_s": clock() - t2}
+            with trace.timed("position"):
+                pos_att = mesh.position_attribute()
+                pos = np.ascontiguousarray(pos_att.values, np.float32)[None]
+                V = pos.shape[1]
+                quant = dict(zip(("q", "mins", "delta_max", "vmin", "vmax"),
+                                 _host_quantize(pos, bits)))
+                # a segment's own tile tables, where K1 tiles
+                gathers = [_device_gathers(topo, pos_att, d, V) for d in axis]
+                T = gathers[0]["order"].numel()
+                parts, counts = encode_step_stream_sharded(
+                    quant["q"], gathers, quant["vmin"], quant["vmax"],
+                    bits=bits, mesh_axis=axis,
+                    tiles=[functools.partial(_device_tiles, topo, pos_att, d,
+                                             V, span)
+                           for d, span in zip(axis,
+                                              shard_bounds(T, len(axis)))])
+                symbols = np.concatenate([_read_symbols(p[0], bits)
+                                          for p in parts])
+                _check_counted([counts], symbols)
+            with trace.timed("assembly"):
+                blob = _assemble_precomputed(mesh, topo, cfg, symbols, quant,
+                                             bits)
+                self._dev_cache_touch(key, topo)
+        self.timings = _stage_timings(call.totals, single=True)
         return blob
 
     def _resident_peak_bytes(self, mesh) -> int:
         """Estimated peak card memory of ``encode_mesh_device`` on
         ``mesh`` at ``self.cfg``'s depths (see RESIDENT_BYTES_PER_VERTEX)."""
-        bits = self._resolve_depths(None)["bits"]
+        bits = self._resolve_depths()[0]["bits"]
         _, topo = self._topo_for(mesh)
         V = mesh.position_attribute().num_points
         peak = V * self.RESIDENT_BYTES_PER_VERTEX
@@ -1367,8 +1327,7 @@ class BatchEncoder:
         keys of ``encode_meshes_device`` (``signatures_s`` ...
         ``assembly_s``, ``h2d_mb``) summed over every device-plane call in
         it, probes included, from the totals that its nested roots add to
-        its own (a lone huge mesh's resident route adds its stages too, the
-        chunked route's passes are not among them); the host
+        its own (a lone huge mesh's route adds its stages too); the host
         plane's seconds in the probes (``route_probe_host_s``), the device
         plane's in the probes (``route_probe_device_s``) and the host
         plane's outside them (``route_host_s``); and the counts
@@ -1388,7 +1347,6 @@ class BatchEncoder:
         self._route_dev_name = _device_name(dev) + (
             f" x{len(axis)}" if self.mesh_axis is not None else "")
         counts = dict.fromkeys(_ROUTE_COUNTS, 0)
-        counts["h2d_mb"] = 0.0
         with trace.root("encode_meshes_auto", meshes=len(meshes)) as call:
             with trace.span("signatures"):
                 groups: dict[str, list[int]] = {}
@@ -1421,11 +1379,10 @@ class BatchEncoder:
         counts["meshes_host"] += len(idxs)
 
     def _route_device(self, meshes, idxs, out, dev, counts) -> None:
-        """The device plane on ``idxs``; its upload adds to ``h2d_mb``."""
+        """The device plane on ``idxs``."""
         for i, blob in zip(idxs, self._device_plane(
                 [meshes[i] for i in idxs], dev)):
             out[i] = blob
-        counts["h2d_mb"] += self.timings.get("h2d_mb", 0.0)
         counts["meshes_device"] += len(idxs)
 
     def _route_group(self, meshes, idxs, sig, out, dev,

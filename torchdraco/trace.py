@@ -18,7 +18,8 @@ call's nanoseconds by the name of each ``timed`` span opened under it
 (``totals``), which the encoders make their ``timings`` from; a ``timed``
 span reads the clock twice with or without a profiler. A root opened
 under another (the router's device-plane calls) adds its totals to the
-enclosing root's when it closes.
+enclosing root's when it closes, counts that its call put there beside
+the nanoseconds included (the group path's upload bytes, ``h2d_bytes``).
 
 ``spans()`` returns the kept spans and ``clear()`` drops them. Past ``CAP``
 spans nothing more is kept, and ``dropped()`` counts what was not. Each
