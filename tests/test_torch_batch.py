@@ -365,7 +365,12 @@ def test_slice_with_normals_and_uvs_bytes_match(monkeypatch, kind, depths):
     for k in range(3):
         assert sorted(entries[k]) == [1, 2]  # the normal and the UV entry
         for ai in (1, 2):
-            assert entries[k][ai] == j_entries[k][ai]
+            # tpudraco's payloads, and the portabilization the port's
+            # entries carry beside them (tests/test_torch_assembly_carry.py)
+            e, j = entries[k][ai], j_entries[k][ai]
+            assert {x: e[x] for x in j} == j
+            assert set(e) - set(j) == (
+                {"port_meta"} if ai == 1 else {"port_meta", "port_values"})
     # an out-of-range normal depth routes the normals to the host
     entries6 = tbatch._device_extra_attribute_entries(
         meshes, [0, 1, 2], topo, bits=qp, normal_bits=6, device="cpu")

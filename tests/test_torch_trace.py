@@ -2,7 +2,9 @@
 kept without a profiler; under ``torch.profiler.profile`` the encode
 routes and ``build_meshes`` give their documented spans, nested in their
 parents and sharing their call's root; the dedup spans count the rows
-they were given and the distinct rows they found; the encoders' ``timings`` are the
+they were given and the distinct rows they found; the ``assembly`` span counts
+the chain attributes whose portabilization was carried and those it ran
+again; the encoders' ``timings`` are the
 totals of those spans, a nested root's adding to its caller's; and the
 spans sit on the clock of the profiler's Chrome trace."""
 
@@ -132,6 +134,29 @@ def test_payload_spans_count_skipped_meshes(encoder, monkeypatch, library):
     assert (got[1]["meshes"], got[1]["skipped"], got[1]["native"]) \
         == (4, 0, library)
     assert len(got) == 2
+
+
+@pytest.mark.parametrize("route", ["group", "resident"])
+def test_assembly_counts_carried_and_ported(encoder, route):
+    """The ``assembly`` span counts the NORMAL and TEX_COORD attributes
+    whose chain entry carried their portabilization and those it
+    portabilized itself: here the one normal that a zero value sent to
+    the host encoder."""
+    pos, faces, nrm, uvs = _arrays(4)
+    nrm[2, 5] = 0.0
+    meshes = torchdraco.build_meshes(pos, faces, nrm, uvs)
+    if route == "group":
+        _, spans, _ = _traced(lambda: encoder.encode_meshes_device(meshes))
+        want = [{"carried": 7, "ported": 1}]
+    else:
+        _, spans, _ = _traced(lambda: [encoder.encode_mesh_device(m)
+                                       for m in meshes])
+        want = [{"carried": 2, "ported": 0}] * 2 + [
+            {"carried": 1, "ported": 1}, {"carried": 2, "ported": 0}]
+    got = [s.attrs for s in sorted(spans, key=lambda s: s.start_ns)
+           if s.name == "assembly"]
+    assert got == want
+    assert encoder.n_host_attributes == 1
 
 
 def test_build_meshes_gives_values_and_points_spans():

@@ -80,6 +80,17 @@ def default_prediction_for(att_type: AttributeType,
 VECTORIZED_PREDICTIONS = True
 
 
+def carries_port(entry: dict | None, att: Attribute,
+                 named: set[int]) -> bool:
+    """Whether the precomputed ``entry`` of ``att`` carries its
+    portabilization for ``_encode_one`` to emit as it stands: the bytes
+    (``port_meta``), and its values (``port_values``) wherever an attribute
+    reads them as a parent (``named``: the ids the mesh's attributes name
+    as parents). Otherwise ``portabilize`` runs."""
+    return entry is not None and "port_meta" in entry and (
+        "port_values" in entry or att.att_id not in named)
+
+
 def encode_attributes(attributes: list[Attribute], writer,
                       conn_out: ConnectivityOutput, recorder=None,
                       sequences: dict | None = None,
@@ -95,7 +106,8 @@ def encode_attributes(attributes: list[Attribute], writer,
     (the encode_symbols output, computed on the accelerator),
     "xform_meta": bytes} to skip the host predict/transform/entropy stages
     for that attribute (device batch path; bit-exactness pinned by
-    tests/test_parallel.py). ``attribute_traversal`` is the wire
+    tests/test_parallel.py); an entry may also carry the attribute's
+    portabilization (``carries_port``). ``attribute_traversal`` is the wire
     TraversalType (mod.rs:59-88) every attribute is sequenced with."""
     from ..eval import NULL
     if attribute_traversal not in (TRAVERSAL_DEPTH_FIRST,
@@ -129,6 +141,7 @@ def encode_attributes(attributes: list[Attribute], writer,
                                                        quant_bits)
         writer.write_u8(port_type)
 
+    named = {p for att in attributes for p in att.parents}
     port_atts: dict[int, Attribute] = {}
     for i, att in enumerate(attributes):
         parents = [port_atts[pid] for pid in att.parents]
@@ -147,6 +160,9 @@ def encode_attributes(attributes: list[Attribute], writer,
         rec.scope_begin(f"attribute {i} ({att.att_type.name})", writer)
         seq = sequences.get(i) if sequences else None
         pre = precomputed.get(i) if precomputed else None
+        if pre is not None and not carries_port(pre, att, named):
+            pre = {k: v for k, v in pre.items()
+                   if k not in ("port_meta", "port_values")}
         port_att = _encode_one(att, i, parents, conn_out, writer, rec,
                                sequence=seq, precomputed=pre,
                                quant_bits=quant_bits,
@@ -189,7 +205,10 @@ def _encode_one(att: Attribute, att_data_id: int, parents: list[Attribute],
                 transform: dict | None = None,
                 pred_cache: dict | None = None,
                 attribute_traversal: int = TRAVERSAL_DEPTH_FIRST
-                ) -> Attribute:
+                ) -> Attribute | None:
+    """Writes ``att``; returns its portabilized twin, which a child
+    attribute reads as a parent, or None where ``precomputed`` carries
+    ``port_meta`` without ``port_values`` (``carries_port``)."""
     from ..eval import NULL
     if rec is None:
         rec = NULL
@@ -216,15 +235,17 @@ def _encode_one(att: Attribute, att_data_id: int, parents: list[Attribute],
     # portabilize (writes quantization metadata into a side buffer)
     port_type, bits = default_portabilization_for(att.att_type, quant_bits)
     if precomputed is not None and "port_meta" in precomputed:
-        # the batch plane already quantized this attribute (vectorized
-        # across the whole group on host) — emit its metadata bytes and
-        # skip the per-mesh re-quantization, the dominant assembly cost
+        # the batch plane already portabilized this attribute (positions
+        # and UVs quantized across the whole group on host, normals on
+        # the device) — emit its metadata bytes and skip the per-mesh
+        # re-quantization, the dominant assembly cost
         from .portabilization import _clone_with_values
         writer.write_u8(1)  # rans_encoding flag
         writer.write_bytes(precomputed["payload"])
         writer.write_bytes(precomputed["xform_meta"])
         writer.write_bytes(precomputed["port_meta"])
-        return _clone_with_values(att, precomputed["port_values"])
+        values = precomputed.get("port_values")
+        return None if values is None else _clone_with_values(att, values)
     port_buf = _Buf()
     port_att = portabilize(att, port_type, bits, port_buf)
 

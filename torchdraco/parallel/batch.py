@@ -54,7 +54,7 @@ from ..device import (
 from ..encode import (
     Config, _traversal_wire_id, encode_header, encode_metadata,
 )
-from ..encode.attribute import encode_attributes
+from ..encode.attribute import carries_port, encode_attributes
 from ..encode.connectivity import EdgebreakerEncoder
 from ..entropy.symbol_coding import DIRECT_CODED, encode_symbols
 from ..models import AttributeType, TableView
@@ -553,7 +553,10 @@ def _device_extra_attribute_entries(meshes, idxs, topo: PreparedTopology,
     feed every chain; the UVs cross the link in the layout of
     ``uv_bits`` and are widened there too (``_host_quantized_upload``'s
     counterpart). Returns
-    {position-in-idxs: {att_idx: {"payload", "xform_meta"}}}; ineligible
+    {position-in-idxs: {att_idx: {"payload", "xform_meta", "port_meta"}}},
+    each entry with the bytes its portabilization writes (the UVs' also
+    with their values, ``port_values``: ``_quantized_port``), so that the
+    assembly does not portabilize it again; ineligible
     attributes (or individual "risky"/degenerate meshes) are simply
     absent and take the host path in the assembly. An error inside a chain
     raises."""
@@ -626,10 +629,12 @@ def _device_extra_attribute_entries(meshes, idxs, topo: PreparedTopology,
                                           n_mx=(1 << normal_bits) - 1)
             sp.note(**counts)
         for k, entry in got.items():
+            # quantize_octahedral's bytes: the depth alone
+            entry["port_meta"] = bytes([normal_bits])
             out.setdefault(k, {})[ni] = entry
     for ui in uv_idxs:
-        q_uv = [widen(q) for q in _upload(
-            _host_quantize(uv_batches[ui], uv_bits)[0], uv_bits, axis)[0]]
+        q, mins, delta_max = _host_quantize(uv_batches[ui], uv_bits)[:3]
+        q_uv = [widen(x) for x in _upload(q, uv_bits, axis)[0]]
         uo_uv = mesh0.attributes[ui].unique_indices()
         g = [topo.dev_uv_gathers_for(ui, pos_att0.num_points, d)
              for d in axis]
@@ -641,6 +646,7 @@ def _device_extra_attribute_entries(meshes, idxs, topo: PreparedTopology,
                                           vmax)
             sp.note(**counts)
         for k, entry in got.items():
+            entry.update(_quantized_port(q, mins, delta_max, k, uv_bits))
             out.setdefault(k, {})[ui] = entry
     return out
 
@@ -660,6 +666,17 @@ def _check_counted(counts: list, symbols: np.ndarray) -> None:
                            f"{symbols.size} counted")
 
 
+def _quantized_port(q: np.ndarray, mins: np.ndarray,
+                    delta_max: np.ndarray, k: int, bits: int) -> dict:
+    """Mesh ``k``'s portabilization out of ``_host_quantize``'s ``q``,
+    ``mins`` and ``delta_max``: the bytes ``quantize_coordinate_wise``
+    writes (``port_meta``: the mins and delta_max as float32, the depth)
+    and its values (``port_values``)."""
+    return {"port_meta": mins[k].astype("<f4").tobytes()
+            + delta_max[k:k + 1].astype("<f4").tobytes() + bytes([bits]),
+            "port_values": q[k]}
+
+
 def _position_entry(mesh, payload: bytes, quant: dict, k: int,
                     bits: int) -> dict:
     """{POSITION index: the precomputed entry} of mesh ``k`` of a route's
@@ -673,21 +690,26 @@ def _position_entry(mesh, payload: bytes, quant: dict, k: int,
     w.write_u32(int(quant["vmax"][k]) & 0xFFFFFFFF)
     entry = {"payload": payload, "xform_meta": bytes(w.getvalue())}
     if "q" in quant:
-        entry.update(
-            port_meta=quant["mins"][k].astype("<f4").tobytes()
-            + quant["delta_max"][k:k + 1].astype("<f4").tobytes()
-            + bytes([bits]),
-            port_values=quant["q"][k])
+        entry.update(_quantized_port(quant["q"], quant["mins"],
+                                     quant["delta_max"], k, bits))
     pos_idx = next(j for j, a in enumerate(mesh.attributes)
                    if a.att_type == AttributeType.POSITION)
     return {pos_idx: entry}
 
 
-def _host_coded_chains(mesh, pre: dict) -> int:
-    """The NORMAL and TEX_COORD attributes of ``mesh`` without an entry
-    in ``pre``: a guard of the chains left them to the host encoder."""
-    return sum(1 for j, a in enumerate(mesh.attributes)
-               if a.att_type in _CHAIN_TYPES and j not in pre)
+def _chain_counts(mesh, pre: dict) -> tuple[int, int, int]:
+    """(carried, ported, host) of ``mesh``'s NORMAL and TEX_COORD
+    attributes: those whose chain entry in ``pre`` carries its
+    portabilization (``carries_port``), which the assembly emits as it
+    stands; those the assembly portabilizes itself; and of those, the
+    ones without an entry, which a guard of the chains left to the host
+    encoder."""
+    named = {p for a in mesh.attributes for p in a.parents}
+    chains = [(j, a) for j, a in enumerate(mesh.attributes)
+              if a.att_type in _CHAIN_TYPES]
+    carried = sum(carries_port(pre.get(j), a, named) for j, a in chains)
+    host = sum(j not in pre for j, _ in chains)
+    return carried, len(chains) - carried, host
 
 
 def _assemble_precomputed(mesh, topo: PreparedTopology, cfg,
@@ -1033,15 +1055,18 @@ class BatchEncoder:
                 extra = _device_extra_attribute_entries(
                     meshes, chunk, topo, **depths, q_pos=dev_c["q_dev"],
                     mesh_axis=axis)
-            with trace.timed("assembly"):
+            with trace.timed("assembly") as sp:
+                carried = ported = 0
                 for k, i in enumerate(chunk):
                     pre = _position_entry(meshes[i], payloads[k], dev_c, k,
                                           bits)
                     pre.update(extra.get(k, {}))
-                    self.n_host_attributes += _host_coded_chains(meshes[i],
-                                                                 pre)
+                    c, p, host = _chain_counts(meshes[i], pre)
+                    carried, ported = carried + c, ported + p
+                    self.n_host_attributes += host
                     out[i] = encode_with_topology(meshes[i], topo, cfg=cfg,
                                                   precomputed=pre)
+                sp.note(carried=carried, ported=ported)
         self._dev_cache_touch(sig, topo)
         return h2d_bytes
 
@@ -1110,8 +1135,10 @@ class BatchEncoder:
                 pre = _device_extra_attribute_entries(
                     [mesh], [0], topo, **depths, device=dev,
                     q_pos=dev_c["q_dev"]).get(0, {})
-                self.n_host_attributes += _host_coded_chains(mesh, pre)
-            with trace.timed("assembly"):
+            with trace.timed("assembly") as sp:
+                carried, ported, host = _chain_counts(mesh, pre)
+                self.n_host_attributes += host
+                sp.note(carried=carried, ported=ported)
                 blob = _assemble_precomputed(mesh, topo, cfg, syms, dev_c,
                                              bits, pre)
                 self._dev_cache_touch(key, topo)
@@ -1215,7 +1242,9 @@ class BatchEncoder:
                 symbols = (np.concatenate(sym_parts) if sym_parts
                            else np.zeros((0, N), np.int32))
                 _check_counted([counts], symbols)
-            with trace.timed("assembly"):
+            with trace.timed("assembly") as sp:
+                carried, ported, _ = _chain_counts(mesh, {})
+                sp.note(carried=carried, ported=ported)
                 blob = _assemble_precomputed(
                     mesh, topo, cfg, symbols, {"vmin": [vmin], "vmax": [vmax]},
                     bits)
@@ -1262,7 +1291,9 @@ class BatchEncoder:
                 symbols = np.concatenate([_read_symbols(p[0], bits)
                                           for p in parts])
                 _check_counted([counts], symbols)
-            with trace.timed("assembly"):
+            with trace.timed("assembly") as sp:
+                carried, ported, _ = _chain_counts(mesh, {})
+                sp.note(carried=carried, ported=ported)
                 blob = _assemble_precomputed(mesh, topo, cfg, symbols, quant,
                                              bits)
                 self._dev_cache_touch(key, topo)
